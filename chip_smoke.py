@@ -10,11 +10,14 @@ before the last line):
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build:
    ``nvcc`` compiles ``fastdfs_tpu_torch/csrc/*.cu`` for sm_90a.
-2. Kernels against their plain PyTorch twins on the card, bit for bit, at
-   the engine's six bucket shapes (256 rows x 2048..65536 bytes) and one
-   DEDUP_VERIFY-shaped SHA-1 batch, with each kernel's median time (CUDA
-   events), the plain twin's time and the least time the card could take
-   (the bound).
+2. The ragged kernels against their plain PyTorch twins (and SHA-1 against
+   hashlib) on the card, bit for bit: a seeded 64 MB segment cut by the
+   host chunker, with each kernel's median time over one launch for the
+   whole segment (CUDA events), the plain twin's time and the least time
+   the card could take (the bound); an edge segment (lengths 0-8, 55-57,
+   63-65 at every start offset mod 4, each followed by non-zero bytes,
+   and a last chunk past max_size); one chunk as large as the segment;
+   and the padded ``(N, L)`` adapters at 256 x 2048.
 3. The main path through the socket: the port's DedupSidecar serves in a
    thread; a seeded 256 MB corpus (A; B = A with scattered edits; C = a
    copy of A; D unique), 64 MB per file, goes in as one
@@ -23,8 +26,8 @@ before the last line):
    segment for D (chunked on the card), then DEDUP_NEARDUPS for B and a
    DEDUP_VERIFY batch with one corrupted chunk.  Every digest is checked
    against hashlib, the file signatures against the plain twins, the
-   dedup / near-dup / verify verdicts, and that both kernels' launch
-   counters rose during this phase.
+   dedup / near-dup / verify verdicts, and that each 64 MB request
+   launched each kernel exactly once (verify: one SHA-1 launch).
 4. Where one segment's engine time goes: a torch.profiler pass over
    ``DedupEngine.fingerprint``, device time by kernel and the idle share.
 
@@ -52,24 +55,27 @@ import numpy as np
 import torch
 
 from fastdfs_tpu_torch.common import protocol
-from fastdfs_tpu_torch.dedup.engine import DedupConfig, _bucket_len
+from fastdfs_tpu_torch.dedup.engine import SEGMENT_SLACK, DedupConfig
 from fastdfs_tpu_torch.ops import _build, minhash, sha1
-from fastdfs_tpu_torch.ops.cuda_minhash import survivor_segmin_cuda
-from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
+from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
+                                                sketch_ragged_cuda,
+                                                survivor_ragged_cuda,
+                                                survivor_segmin_cuda)
+from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_np
 from fastdfs_tpu_torch.sidecar import DedupSidecar
 
 SEED = 20261016
 SEGMENT = 64 << 20                     # storage.conf dedup_segment_bytes
-BUCKETS = (2048, 4096, 8192, 16384, 32768, 65536)
-ROWS = 256                             # DedupConfig.row_tile
+PLAIN_ROW_TILE = 4096                  # plain twins' tiles on the card
 TIMED_LAUNCHES = 20
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and
 # the 32-bit integer rate, 132 SMs x 64 results per clock (IMAD, IADD3,
 # LOP3, SHF, IMNMX on compute capability 9.0) x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # The fewest sm_90a integer instructions each function needs, one per
 # IMAD, IADD3, LOP3, SHF (funnel shift) or PRMT:
 # - SHA-1 per 64-byte block: 16 byte swaps (PRMT); 64 schedule words of
@@ -82,8 +88,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #   two IMAD, one LOP3 (sample test, predicate out), one IMNMX (min);
 #   plus per 4-byte word an address add, a loop add, a compare and a
 #   segment flush, one per position.  5 + 1 = 6.
+# - Stage 4 per non-EMPTY segment minimum and permutation: one IMAD
+#   (a*z + b) and one IMNMX.  2.
 SHA1_OPS_PER_BLOCK = 613
 SURVIVOR_OPS_PER_POSITION = 6
+STAGE4_OPS_PER_SURVIVOR_PERM = 2
+# SHA-1's critical path: a message's blocks are a serial chain, and each
+# round depends on the last through two instructions (rotl(a,5) or f,
+# then one IADD3).  A dependent 32-bit ALU instruction issues about 4
+# cycles after its producer: measured at 4 cycles for IADD3, LOP3 and
+# SHF-class instructions on Volta by Jia et al., "Dissecting the NVIDIA
+# Volta GPU Architecture via Microbenchmarking" (arXiv:1804.06826), and
+# assumed unchanged on Hopper.  So the longest chunk alone needs
+# blocks x 80 x 2 x 4 cycles.
+SHA1_CHAIN_INSTR_PER_ROUND = 2
+ALU_LATENCY_CYCLES = 4
 
 _I64 = struct.Struct(">q")
 
@@ -133,120 +152,187 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def sha1_work(lens: np.ndarray) -> tuple[float, float]:
-    """(bytes, operations) one SHA-1 call needs for these row lengths:
-    each row's bytes and length read once, 20 bytes written per row."""
+def sha1_bound(lens: np.ndarray) -> tuple[float, str]:
+    """(ms, by) of one SHA-1 launch over these chunks: the larger of its
+    bytes (each chunk byte and its offset, length and order entry read
+    once, 20 bytes written per chunk) over HBM, its operations over the INT32 rate, and the
+    longest chunk's dependent chain."""
     lens = lens.astype(np.int64)
-    blocks = ((lens + 8) // 64 + 1).sum()
-    return float(lens.sum() + 24 * len(lens)), float(blocks * SHA1_OPS_PER_BLOCK)
+    blocks = (lens + 8) // 64 + 1
+    t_bytes = float(lens.sum() + 36 * len(lens)) / HBM_BYTES_PER_S
+    t_ops = float(blocks.sum() * SHA1_OPS_PER_BLOCK) / INT32_OPS_PER_S
+    t_chain = (float(blocks.max()) * 80 * SHA1_CHAIN_INSTR_PER_ROUND
+               * ALU_LATENCY_CYCLES / SM_CLOCK_HZ)
+    return (max(t_bytes, t_ops, t_chain) * 1e3,
+            "bytes" if t_bytes >= max(t_ops, t_chain) else "operations")
 
 
-def survivor_work(lens: np.ndarray) -> tuple[float, float]:
-    """(bytes, operations) of one survivor call: positions p <= bound."""
+def sketch_bound(lens: np.ndarray, survivors: int) -> tuple[float, str]:
+    """(ms, by) of one fused sketch launch: each chunk byte and its
+    offset, length and order entry read once and 256 signature bytes
+    written per chunk, against
+    the positions p <= bound and stage 4 over this run's non-EMPTY
+    segment minima."""
     lens = lens.astype(np.int64)
     bound = np.where(lens >= 5, lens - 5, np.maximum(lens, 1) - 1)
-    positions = (bound + 1).sum()
-    return (float(lens.sum() + 4 * len(lens) + 4096 * len(lens)),
-            float(positions * SURVIVOR_OPS_PER_POSITION))
-
-
-def bucket_batch(rng, L: int) -> tuple[np.ndarray, np.ndarray]:
-    """256 seeded rows for bucket L: the edge lengths, constant, ramp and
-    all-zero rows, then random lengths; zero past each length."""
-    data = rng.integers(0, 256, (ROWS, L), dtype=np.uint8)
-    lens = rng.integers(1, L + 1, ROWS).astype(np.int32)
-    edges = [L, 1, 3, 55, 56, 57, 63, 64, 65, 0, 2, 4, 5]
-    lens[:len(edges)] = edges
-    data[13] = 0xAB
-    data[14] = np.arange(L) % 256
-    data[15] = 0
-    lens[13:16] = L
-    data[np.arange(L)[None, :] >= lens[:, None]] = 0
-    return data, lens
+    t_bytes = float(lens.sum() + 272 * len(lens)) / HBM_BYTES_PER_S
+    ops = ((bound + 1).sum() * SURVIVOR_OPS_PER_POSITION
+           + survivors * 64 * STAGE4_OPS_PER_SURVIVOR_PERM)
+    t_ops = float(ops) / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 class KernelRecord:
     def __init__(self, name, source, replaces):
         self.name, self.source, self.replaces = name, source, replaces
-        self.ms = self.plain_ms = 0.0
-        self.bytes = self.ops = 0.0
+        self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.bound_by = ""
         self.max_abs_err = 0
         self.launches = 0
 
-    def add(self, ms, plain_ms, work, err):
-        self.ms += ms
-        self.plain_ms += plain_ms
-        self.bytes += work[0]
-        self.ops += work[1]
-        self.max_abs_err = max(self.max_abs_err, err)
-
     def json(self):
-        t_bytes = self.bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = self.ops / INT32_OPS_PER_S * 1e3
         return {"name": self.name, "route": "cuda", "source": self.source,
                 "replaces": self.replaces, "launches": self.launches,
                 "max_abs_err": self.max_abs_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None}
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": self.bound_by, "library_ms": None}
 
 
-def phase_kernels(dev, rec_sha1, rec_surv) -> None:
-    rng = np.random.default_rng(SEED)
-    print("phase 2: kernels vs plain twins on the card "
-          "(ms per launch; bound = least time for this launch's work)")
-    for L in BUCKETS:
-        data, lens = bucket_batch(rng, L)
-        d = torch.from_numpy(data).to(dev)
-        ln = torch.from_numpy(lens).to(dev)
+def on_card(dev, seg: bytes, offsets, lens):
+    """A segment with its zero slack, and its chunk table (offsets,
+    lengths, longest-first order), on the card, as the engine stages it."""
+    buf = torch.zeros(len(seg) + SEGMENT_SLACK, dtype=torch.uint8)
+    buf.numpy()[:len(seg)] = np.frombuffer(seg, np.uint8)
+    lens = np.asarray(lens, np.int32)
+    order = np.argsort(-lens, kind="stable").astype(np.int32)
+    return (buf.to(dev), torch.from_numpy(np.asarray(offsets, np.int64)).to(dev),
+            torch.from_numpy(lens).to(dev), torch.from_numpy(order).to(dev))
 
-        got = i64(sha1_batch_cuda(d, ln))
-        plain, plain_ms = once_ms(lambda: sha1.sha1_batch(d, ln))
-        err = int(np.abs(got - i64(plain)).max())
-        check(err == 0, f"sha1 kernel != plain twin at (256, {L})")
-        raw = sha1.digest_bytes(got.astype(np.uint32))
-        for i in range(ROWS):
-            check(raw[i * 20:(i + 1) * 20]
-                  == hashlib.sha1(data[i, :lens[i]].tobytes()).digest(),
-                  f"sha1 kernel != hashlib at (256, {L}) row {i}")
-        ms = median_ms(lambda: sha1_batch_cuda(d, ln))
-        work = sha1_work(lens)
-        rec_sha1.add(ms, plain_ms, work, err)
-        bound = max(work[0] / HBM_BYTES_PER_S, work[1] / INT32_OPS_PER_S) * 1e3
-        print(f"  sha1            (256, {L:5d}): {ms:.4f} ms  plain "
-              f"{plain_ms:.1f} ms  bound {bound:.4f} ms  bit-exact")
 
-        got = i64(survivor_segmin_cuda(d, ln))
-        plain, plain_ms = once_ms(lambda: minhash.survivor_segmin(d, ln))
-        err = int(np.abs(got - i64(plain)).max())
-        check(err == 0, f"survivor kernel != plain twin at (256, {L})")
-        check((got != int(minhash.EMPTY)).any(), "survivor sketch all EMPTY")
-        ms = median_ms(lambda: survivor_segmin_cuda(d, ln))
-        work = survivor_work(lens)
-        rec_surv.add(ms, plain_ms, work, err)
-        bound = max(work[0] / HBM_BYTES_PER_S, work[1] / INT32_OPS_PER_S) * 1e3
-        print(f"  survivor_segmin (256, {L:5d}): {ms:.4f} ms  plain "
-              f"{plain_ms:.1f} ms  bound {bound:.4f} ms  bit-exact")
+def edge_segment(rng) -> tuple[bytes, list[int], list[int]]:
+    """Lengths 0-8, 55-57, 63-65 and 1400 at every start offset mod 4,
+    each followed by non-zero bytes, then a chunk past the 64 KiB max_size
+    that ends the segment."""
+    seg = bytearray()
+    offsets, lens = [], []
+    for align in range(4):
+        for n in list(range(9)) + [55, 56, 57, 63, 64, 65, 1400]:
+            seg += rng.integers(1, 256, 1 + (align - len(seg) - 1) % 4,
+                                dtype=np.uint8).tobytes()
+            offsets.append(len(seg))
+            lens.append(n)
+            seg += rng.integers(1, 256, n, dtype=np.uint8).tobytes()
+    offsets.append(len(seg))
+    lens.append(66000)
+    seg += rng.integers(1, 256, 66000, dtype=np.uint8).tobytes()
+    return bytes(seg), offsets, lens
 
-    # A DEDUP_VERIFY-shaped batch: request count x longest chunk, with an
-    # empty chunk among them.
-    lens = rng.integers(2048, 65537, 33).astype(np.int32)
-    lens[7] = 0
-    data = rng.integers(0, 256, (33, int(lens.max())), dtype=np.uint8)
-    data[np.arange(data.shape[1])[None, :] >= lens[:, None]] = 0
+
+def check_segment(dev, what, seg, offsets, lens, rec_sha1, rec_sketch,
+                  timed: bool) -> None:
+    """Both ragged kernels on one segment, bit for bit against their plain
+    twins and hashlib; with ``timed``, the CUDA-event medians, the twins'
+    times and the bounds go into the records."""
+    d_seg, d_off, d_len, d_ord = on_card(dev, seg, offsets, lens)
+    plain_seg = d_seg[:len(seg)]
+
+    got = i64(sha1_ragged_cuda(d_seg, d_off, d_len, d_ord))
+    plain, plain_ms = once_ms(lambda: sha1.sha1_ragged(
+        plain_seg, d_off, d_len, PLAIN_ROW_TILE))
+    err = int(np.abs(got - i64(plain)).max())
+    check(err == 0, f"sha1 kernel != plain twin on the {what}")
+    raw = sha1.digest_bytes(got.astype(np.uint32))
+    for i, (o, n) in enumerate(zip(offsets, lens)):
+        check(raw[i * 20:(i + 1) * 20] == hashlib.sha1(seg[o:o + n]).digest(),
+              f"sha1 kernel != hashlib on the {what}, chunk {i}")
+    rec_sha1.max_abs_err = max(rec_sha1.max_abs_err, err)
+    if timed:
+        rec_sha1.ms = median_ms(lambda: sha1_ragged_cuda(d_seg, d_off, d_len,
+                                                         d_ord))
+        rec_sha1.plain_ms = plain_ms
+        rec_sha1.bound_ms, rec_sha1.bound_by = sha1_bound(np.asarray(lens))
+
+    got = i64(sketch_ragged_cuda(d_seg, d_off, d_len, None, d_ord))
+    (plain, z), plain_ms = once_ms(lambda: minhash.sketch_ragged(
+        plain_seg, d_off, d_len, row_tile=PLAIN_ROW_TILE, with_z=True))
+    err = int(np.abs(got - i64(plain)).max())
+    check(err == 0, f"sketch kernel != plain twin on the {what}")
+    survivors = int((i64(z) != int(minhash.EMPTY)).sum())
+    check(survivors > 0, f"sketch of the {what} has no survivor")
+    check(np.array_equal(i64(survivor_ragged_cuda(d_seg, d_off, d_len, d_ord)),
+                         i64(z)),
+          f"sketch kernel's stages 1-3 != plain twin on the {what}")
+    rec_sketch.max_abs_err = max(rec_sketch.max_abs_err, err)
+    if timed:
+        words = minhash.perm_words(64, dev)
+        rec_sketch.ms = median_ms(lambda: sketch_ragged_cuda(
+            d_seg, d_off, d_len, words, d_ord))
+        rec_sketch.plain_ms = plain_ms
+        rec_sketch.bound_ms, rec_sketch.bound_by = sketch_bound(
+            np.asarray(lens), survivors)
+        print(f"  {what}: {len(lens)} chunks, longest {max(lens)} B, "
+              f"{survivors} survivors; sha1 {rec_sha1.ms:.4f} ms (plain "
+              f"{rec_sha1.plain_ms:.1f}, bound {rec_sha1.bound_ms:.4f} by "
+              f"{rec_sha1.bound_by}); sketch {rec_sketch.ms:.4f} ms (plain "
+              f"{rec_sketch.plain_ms:.1f}, bound {rec_sketch.bound_ms:.4f} "
+              f"by {rec_sketch.bound_by}); bit-exact")
+    else:
+        print(f"  {what}: {len(lens)} chunks, both kernels bit-exact")
+
+
+def check_whole_segment_chunk(dev, rng) -> None:
+    """One chunk as large as the segment: a single serial SHA-1 chain of
+    1M blocks, correct and slow."""
+    seg = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
+    d_seg, d_off, d_len, d_ord = on_card(dev, seg, [0], [SEGMENT])
+    digest, sha1_ms = once_ms(lambda: sha1_ragged_cuda(d_seg, d_off, d_len,
+                                                       d_ord))
+    check(sha1.digest_bytes(digest) == hashlib.sha1(seg).digest(),
+          "sha1 kernel != hashlib on the whole-segment chunk")
+    sig, sketch_ms = once_ms(lambda: sketch_ragged_cuda(d_seg, d_off, d_len,
+                                                        None, d_ord))
+    plain = minhash.sketch_ragged(d_seg[:SEGMENT], d_off, d_len)
+    check(np.array_equal(i64(sig), i64(plain)),
+          "sketch kernel != plain twin on the whole-segment chunk")
+    print(f"  one {SEGMENT >> 20} MB chunk: sha1 {sha1_ms:.1f} ms, sketch "
+          f"{sketch_ms:.1f} ms (one launch each, first call); bit-exact")
+
+
+def check_padded_adapters(dev, rng) -> None:
+    """The (N, L) entries over the same kernels: 256 rows of 2048 bytes
+    with the edge lengths, and a verify-shaped batch with a length 0."""
+    data = rng.integers(0, 256, (256, 2048), dtype=np.uint8)
+    lens = rng.integers(1, 2049, 256).astype(np.int32)
+    lens[:12] = [2048, 0, 1, 3, 4, 5, 55, 56, 57, 63, 64, 65]
+    data[np.arange(2048)[None, :] >= lens[:, None]] = 0
     d = torch.from_numpy(data).to(dev)
     ln = torch.from_numpy(lens).to(dev)
-    got = i64(sha1_batch_cuda(d, ln))
-    err = int(np.abs(got - i64(sha1.sha1_batch(d, ln))).max())
-    check(err == 0, "sha1 kernel != plain twin on the verify batch")
-    raw = sha1.digest_bytes(got.astype(np.uint32))
-    for i in range(33):
-        check(raw[i * 20:(i + 1) * 20]
-              == hashlib.sha1(data[i, :lens[i]].tobytes()).digest(),
-              f"sha1 kernel != hashlib on the verify batch row {i}")
-    rec_sha1.max_abs_err = max(rec_sha1.max_abs_err, err)
-    print(f"  sha1 verify batch ({data.shape[0]}, {data.shape[1]}) incl. "
-          "length 0: bit-exact")
+    check(np.array_equal(i64(sha1_batch_cuda(d, ln)), i64(sha1.sha1_batch(d, ln))),
+          "padded sha1 adapter != plain twin")
+    check(np.array_equal(i64(survivor_segmin_cuda(d, ln)),
+                         i64(minhash.survivor_segmin(d, ln))),
+          "padded survivor adapter != plain twin")
+    check(np.array_equal(i64(minhash_batch_cuda(d, ln)),
+                         i64(minhash.minhash_batch(d, ln))),
+          "padded sketch adapter != plain twin")
+    print("  padded (256, 2048) adapters of both kernels: bit-exact")
+
+
+def phase_kernels(dev, rec_sha1, rec_sketch) -> None:
+    rng = np.random.default_rng(SEED)
+    print("phase 2: ragged kernels vs plain twins on the card (ms = one "
+          "launch over the whole segment; bound = least time for its work)")
+    seg = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
+    cuts = chunk_stream_np(seg)
+    offsets = [0] + cuts[:-1]
+    lens = [b - a for a, b in zip(offsets, cuts)]
+    check_segment(dev, f"{SEGMENT >> 20} MB segment", seg, offsets, lens,
+                  rec_sha1, rec_sketch, timed=True)
+    seg, offsets, lens = edge_segment(rng)
+    check_segment(dev, "edge segment", seg, offsets, lens, rec_sha1,
+                  rec_sketch, timed=False)
+    check_whole_segment_chunk(dev, rng)
+    check_padded_adapters(dev, rng)
 
 
 class Client:
@@ -297,28 +383,13 @@ def spans_of(cuts: list[int]) -> list[tuple[int, int]]:
     return [(a, b - a) for a, b in zip([0] + cuts[:-1], cuts)]
 
 
-def plain_file_signature(dev, data: np.ndarray, spans, num_perms: int
-                         ) -> np.ndarray:
-    """Min over every chunk's plain-twin signature, batched per bucket."""
-    cfg = DedupConfig()
-    by_bucket: dict[int, list[tuple[int, int]]] = {}
-    for off, ln in spans:
-        by_bucket.setdefault(_bucket_len(ln, cfg.min_size, cfg.max_size),
-                             []).append((off, ln))
-    sig = np.full(num_perms, int(minhash.EMPTY), dtype=np.int64)
-    for blen, group in by_bucket.items():
-        for start in range(0, len(group), ROWS):
-            rows = group[start:start + ROWS]
-            batch = np.zeros((len(rows), blen), dtype=np.uint8)
-            lens = np.zeros(len(rows), dtype=np.int32)
-            for r, (off, ln) in enumerate(rows):
-                batch[r, :ln] = data[off:off + ln]
-                lens[r] = ln
-            s = minhash.minhash_batch(torch.from_numpy(batch).to(dev),
-                                      torch.from_numpy(lens).to(dev),
-                                      num_perms)
-            sig = np.minimum(sig, i64(s).min(axis=0))
-    return sig
+def plain_file_signature(dev, data: np.ndarray, spans) -> np.ndarray:
+    """Min over every chunk's plain-twin signature, on the card."""
+    seg = torch.from_numpy(data).to(dev)
+    offsets = torch.tensor([o for o, _ in spans], dtype=torch.int64, device=dev)
+    lens = torch.tensor([n for _, n in spans], dtype=torch.int32, device=dev)
+    sig = minhash.sketch_ragged(seg, offsets, lens, row_tile=PLAIN_ROW_TILE)
+    return i64(sig).min(axis=0)
 
 
 def phase_socket(dev, card: str) -> tuple[int, int]:
@@ -350,8 +421,8 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
     check(ready.wait(timeout=60), "sidecar did not bind")
     client = Client(sidecar.socket_path)
     try:
-        sha1_batch_cuda.launches = 0
-        survivor_segmin_cuda.launches = 0
+        sha1_ragged_cuda.launches = 0
+        sketch_ragged_cuda.launches = 0
         latency = {}
         engine_ms = {}
         per_request = {}
@@ -367,13 +438,13 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
                         + _I64.pack(len(cuts[name]))
                         + b"".join(_I64.pack(x) for x in cuts[name]) + data)
             before = engine_us(client)
-            counts = (sha1_batch_cuda.launches, survivor_segmin_cuda.launches)
+            counts = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
             t0 = time.monotonic()
             status, resp = client.call(cmd, body)
             latency[name] = time.monotonic() - t0
             engine_ms[name] = (engine_us(client) - before) / 1e3
-            per_request[name] = (sha1_batch_cuda.launches - counts[0],
-                                 survivor_segmin_cuda.launches - counts[1])
+            per_request[name] = (sha1_ragged_cuda.launches - counts[0],
+                                 sketch_ragged_cuda.launches - counts[1])
             check(status == 0, f"fingerprint {name}: status {status}")
             answers[name] = parse_fingerprint(resp)
             if name == "C":
@@ -397,10 +468,13 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
         payloads[5] = bytes([payloads[5][0] ^ 0xFF]) + payloads[5][1:]
         body = _I64.pack(32) + b"".join(
             _I64.pack(len(p)) + dg for p, dg in zip(payloads, digests[:32]))
+        counts = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
         status, mask = client.call(C.DEDUP_VERIFY, body + b"".join(payloads))
         check(status == 0 and mask == bytes(5) + b"\x01" + bytes(26),
               f"verify flagged {mask!r} (status {status})")
-        launches = (sha1_batch_cuda.launches, survivor_segmin_cuda.launches)
+        per_request["verify"] = (sha1_ragged_cuda.launches - counts[0],
+                                 sketch_ragged_cuda.launches - counts[1])
+        launches = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
     finally:
         client.close()
         sidecar.stop()
@@ -422,13 +496,11 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
     check(answers["C"][1] == answers["A"][1], "C's digests differ from A's")
 
     # The committed file signatures equal the plain twins' on the card.
-    num_perms = DedupConfig().num_perms
     arrays = {"A": a, "D": d}
     for name in "AD":
         got = sidecar.engine.near.signature_of(f"group1/{name}")
         check(got is not None, f"{name} has no signature")
-        want = plain_file_signature(dev, arrays[name], answers[name][0],
-                                    num_perms)
+        want = plain_file_signature(dev, arrays[name], answers[name][0])
         check(np.array_equal(got.astype(np.int64), want),
               f"{name}: file signature != plain twins'")
     print("  digests == hashlib for all 4 files; C all duplicates of A; A "
@@ -447,12 +519,12 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
           f"{cut_mb / latency['D']:.3f} GB/s  "
           f"[{card}]")
     print(f"  kernel launches during the socket phase: sha1 {launches[0]}, "
-          f"survivor_segmin {launches[1]}; per {SEGMENT >> 20} MB request "
-          "(sha1/survivor_segmin): "
-          + ", ".join(f"{k} {per_request[k][0]}/{per_request[k][1]}"
-                      for k in "ABCD"))
-    check(launches[0] > 0 and launches[1] > 0,
-          "a kernel was not launched on the main path")
+          f"sketch {launches[1]}; per request (sha1/sketch): "
+          + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in per_request.items()))
+    for name in "ABCD":
+        check(per_request[name] == (1, 1),
+              f"{name}: {per_request[name]} launches, not one of each kernel")
+    check(per_request["verify"] == (1, 0), "verify: not one sha1 launch")
     return launches
 
 
@@ -476,20 +548,20 @@ def phase_profile(dev) -> None:
         engine.fingerprint(data, cuts=cuts)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    groups = {"sha1 kernel": 0.0, "survivor kernel": 0.0,
-              "copies": 0.0, "plain PyTorch ops (stage 4, casts)": 0.0}
+    groups = {"sha1 kernel": 0.0, "sketch kernel": 0.0, "copies": 0.0,
+              "other device ops": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = ev.self_device_time_total
-        if "sha1_rows_kernel" in ev.key:
+        if "sha1_ragged_kernel" in ev.key:
             groups["sha1 kernel"] += us
-        elif "survivor_segmin_kernel" in ev.key:
-            groups["survivor kernel"] += us
+        elif "sketch_ragged_kernel" in ev.key:
+            groups["sketch kernel"] += us
         elif "Memcpy" in ev.key or "Memset" in ev.key:
             groups["copies"] += us
         else:
-            groups["plain PyTorch ops (stage 4, casts)"] += us
+            groups["other device ops"] += us
     busy_ms = sum(groups.values()) / 1e3
     print(f"phase 4: engine.fingerprint on one {SEGMENT >> 20} MB segment "
           f"with cuts, under torch.profiler: wall {wall_ms:.1f} ms")
@@ -523,16 +595,16 @@ def main() -> int:
 
     rec_sha1 = KernelRecord("sha1", "fastdfs_tpu_torch/csrc/sha1.cu",
                             "fastdfs_tpu/ops/pallas_sha1.py:93")
-    rec_surv = KernelRecord("survivor_segmin",
+    rec_sketch = KernelRecord("sketch",
                             "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
                             "fastdfs_tpu/ops/pallas_minhash.py:121")
-    phase_kernels(dev, rec_sha1, rec_surv)
-    rec_sha1.launches, rec_surv.launches = phase_socket(dev, card)
+    phase_kernels(dev, rec_sha1, rec_sketch)
+    rec_sha1.launches, rec_sketch.launches = phase_socket(dev, card)
     phase_profile(dev)
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [rec_sha1.json(), rec_surv.json()]}))
+    print(json.dumps({"kernels": [rec_sha1.json(), rec_sketch.json()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,104 +1,185 @@
-// MinHash survivor sketch, stages 1-3 (spec v2), one block per row.
+// MinHash v2 sketch of N ragged chunks, stages 1-4 fused, one block per chunk.
 //
 // Replaces fastdfs_tpu/ops/pallas_minhash.py:survivor_segmin_pallas
-// (kernel _survivor_kernel).  For every byte position p <= bound of a
-// row (bound = len - 5, or max(len, 1) - 1 when len < 5) it takes the
-// 5-byte polynomial hash h (base 0x01000193, mod 2^32), keeps it iff
-// (h & 0xFF) == 0, and writes z[s] = the unsigned min of the kept hashes
-// with (p / 4) % 1024 == s, or 0xFFFFFFFF when there is none.
+// (kernel _survivor_kernel, stages 1-3) and the XLA stage 4 that the
+// reference runs after it (ops/minhash.py:minhash_signature).  Chunk i is
+// seg[offsets[i] : offsets[i] + lens[i]] at any byte offset.
 //
-// Layout: 1024 threads a block; thread s owns segment s and walks the
-// little-endian words q = 1024 * b + s of every 4096-byte band b, so a
-// warp's loads of word q (and of q + 1, which its neighbour also loads
-// and L1 serves) are consecutive.  The four byte phases of a word are
-// rebuilt from words q and q + 1 with funnel shifts, as the TPU kernel
-// rebuilds them from W and its successor W1.  The min is the native
-// unsigned min: the TPU kernel's int32 bias trick only works around
-// Mosaic's missing vector unsigned min.  A thread owns its segment
-// outright, so no atomics and no shared memory are needed.  Words past
-// the row's end read as zero; the bound already excludes every position
-// whose window would reach them (the TPU kernel wraps to word 0 there
-// instead, which the same bound masks).  Specialised to k = 5, as the
-// reference is.
+// Stages 1-3.  For every byte position p <= bound of the chunk (bound =
+// len - 5, or max(len, 1) - 1 when len < 5, whose windows read zeros past
+// the end) take the 5-byte polynomial hash h (base 0x01000193, mod 2^32),
+// keep it iff (h & 0xFF) == 0, and let z[s] be the unsigned min of the
+// kept hashes with (p / 4) % 1024 == s, or 0xFFFFFFFF when there is none.
+// 256 threads a block; thread t owns segments t + 256 j (j < 4) and walks
+// the chunk's little-endian words q = 1024 r + t + 256 j, so a warp's
+// loads are consecutive.  Word q starts at byte offsets[i] + 4q, which is
+// unaligned when the chunk is; it is rebuilt from aligned segment words
+// with one funnel shift.  Only aligned words that hold a byte of the chunk
+// are loaded, and bytes past the chunk's end are masked to zero, so a
+// neighbour's bytes never enter a window.  Within a word the hash is
+// built once and rolled forward: h' = h B - b[p] B^5 + b[p+5].
 //
-// What bounds it on an H100: the function needs about 6 integer
-// instructions per byte position with the hash rolled forward, against
-// one byte of traffic plus a 4 KiB output row, so it sits near the line
-// between the INT32 pipes and HBM.  This version rebuilds each window
-// from scratch (four IMADs, four byte extractions and the bound test per
-// position), more than twice that count.  Each thread's loop stops at the row's own bound, so
-// short rows in a long bucket cost only their own bytes.
+// Stage 4.  The non-EMPTY z[s] are compacted into shared memory (a warp
+// ballot per segment slot, an offset per warp), then sig[j] = min over
+// them of (a_j z + b_j) mod 2^32 for the 64 permutations, in native
+// uint32 multiply-add: four lanes per permutation, reduced with warp
+// shuffles.  A chunk with no survivor signs as all EMPTY.  Only (N, 64)
+// leaves the kernel, plus z when the caller asks for it (z != null).
 //
-// Contract: data is (n, L) uint8 row-major, rows zero past each length;
-// lens is (n,) int32; out is (n, 1024) uint32.
+// What bounds it on an H100: about 6 integer instructions per byte
+// position with the hash rolled forward, against one byte read from HBM,
+// so operations and bytes bound it about equally; stage 4 adds two per
+// survivor and permutation.  A short chunk's block is mostly fixed cost.
+//
+// Contract: seg is uint8, every chunk inside it; offsets (n,) int64,
+// lens (n,) int32 >= 0; order null or a permutation of [0, n) as int32
+// (block b signs chunk order[b]); perms (2, 64) uint32, a_j then b_j;
+// sig rows of 64 uint32 words, sig_stride words apart; z null or (n, 1024).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kThreads = 256;
 constexpr int kSegments = 1024;
+constexpr int kSlots = kSegments / kThreads;  // segments per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerms = 64;
+constexpr int kLanesPerPerm = kThreads / kPerms;
 constexpr uint32_t kPolyB = 0x01000193u;
+constexpr uint32_t kPolyB5 = kPolyB * kPolyB * kPolyB * kPolyB * kPolyB;
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
 
-// Little-endian word q of the row; bytes at or past L read as zero.
-__device__ __forceinline__ uint32_t load_word(const uint8_t* row, long long q,
-                                              long long L, bool aligned) {
-  const long long p = 4 * q;
-  if (p + 4 <= L) {
-    if (aligned) return __ldg(reinterpret_cast<const uint32_t*>(row + p));
-    return static_cast<uint32_t>(row[p]) |
-           (static_cast<uint32_t>(row[p + 1]) << 8) |
-           (static_cast<uint32_t>(row[p + 2]) << 16) |
-           (static_cast<uint32_t>(row[p + 3]) << 24);
-  }
-  uint32_t w = 0;
-  for (int j = 0; j < 4; ++j)
-    if (p + j < L) w |= static_cast<uint32_t>(row[p + j]) << (8 * j);
-  return w;
+// Aligned word k of the chunk's aligned span (word 0 holds its first
+// byte at byte s), or 0 when the word holds no byte of the chunk.
+__device__ __forceinline__ uint32_t span_word(const uint32_t* span,
+                                              long long k, int s,
+                                              long long len) {
+  return 4 * k - s < len ? __ldg(span + k) : 0u;
 }
 
-__global__ void __launch_bounds__(kSegments)
-    survivor_segmin_kernel(const uint8_t* __restrict__ data,
-                           const int32_t* __restrict__ lens, long long L,
-                           uint32_t* __restrict__ out) {
-  const long long r = blockIdx.x;
-  const int s = threadIdx.x;
-  const uint8_t* row = data + r * L;
-  const long long len = lens[r];
+// Keep the bytes of a little-endian word at chunk positions < len.
+__device__ __forceinline__ uint32_t clip(uint32_t w, long long first,
+                                         long long len) {
+  const long long v = len - first;
+  if (v >= 4) return w;
+  return v <= 0 ? 0u : w & ((1u << (8 * static_cast<int>(v))) - 1u);
+}
+
+__device__ __forceinline__ void keep(uint32_t& m, uint32_t h, long long p,
+                                     long long bound) {
+  if (p <= bound && (h & 0xFFu) == 0u) m = min(m, h);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sketch_ragged_kernel(const uint8_t* __restrict__ seg,
+                         const long long* __restrict__ offsets,
+                         const int32_t* __restrict__ lens,
+                         const int32_t* __restrict__ order,
+                         const uint32_t* __restrict__ perms,
+                         uint32_t* __restrict__ sig, long long sig_stride,
+                         uint32_t* __restrict__ z) {
+  __shared__ uint32_t survivors[kSegments];
+  __shared__ int warp_count[kWarps];
+
+  const long long i = order != nullptr ? order[blockIdx.x] : blockIdx.x;
+  const int t = threadIdx.x;
+  const uint8_t* msg = seg + offsets[i];
+  const long long len = lens[i] > 0 ? lens[i] : 0;
   // Signed: complete shingles, or the degenerate rule for len < 5.
   const long long bound = len >= 5 ? len - 5 : (len > 1 ? len : 1) - 1;
-  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 3) == 0;
+  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(msg) & 3);
+  const uint32_t* span = reinterpret_cast<const uint32_t*>(msg - s);
 
-  uint32_t m = kEmpty;
-  for (long long q = s; 4 * q <= bound; q += kSegments) {
-    const uint32_t w0 = load_word(row, q, L, aligned);
-    const uint32_t w1 = load_word(row, q + 1, L, aligned);
+  // Stages 1-3.
+  uint32_t m[kSlots];
 #pragma unroll
-    for (int ph = 0; ph < 4; ++ph) {
-      // x = bytes p..p+3 of the window, b4 = byte p+4.
-      const uint32_t x = ph == 0 ? w0 : __funnelshift_r(w0, w1, 8 * ph);
-      const uint32_t b4 = (w1 >> (8 * ph)) & 0xFFu;
-      uint32_t h = x & 0xFFu;
-      h = h * kPolyB + ((x >> 8) & 0xFFu);
-      h = h * kPolyB + ((x >> 16) & 0xFFu);
-      h = h * kPolyB + (x >> 24);
-      h = h * kPolyB + b4;
-      if (4 * q + ph <= bound && (h & 0xFFu) == 0u) m = min(m, h);
+  for (int j = 0; j < kSlots; ++j) m[j] = kEmpty;
+  for (long long q0 = t; 4 * q0 <= bound; q0 += kSegments) {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const long long q = q0 + j * kThreads;
+      const long long p = 4 * q;
+      if (p > bound) continue;
+      const uint32_t u0 = span_word(span, q, s, len);
+      const uint32_t u1 = span_word(span, q + 1, s, len);
+      const uint32_t u2 = span_word(span, q + 2, s, len);
+      uint32_t w0 = __funnelshift_r(u0, u1, 8 * s);  // bytes p .. p+3
+      uint32_t w1 = __funnelshift_r(u1, u2, 8 * s);  // bytes p+4 .. p+7
+      if (p + 8 > len) {
+        w0 = clip(w0, p, len);
+        w1 = clip(w1, p + 4, len);
+      }
+      uint32_t h = w0 & 0xFFu;
+      h = h * kPolyB + ((w0 >> 8) & 0xFFu);
+      h = h * kPolyB + ((w0 >> 16) & 0xFFu);
+      h = h * kPolyB + (w0 >> 24);
+      h = h * kPolyB + (w1 & 0xFFu);
+      keep(m[j], h, p, bound);
+      h = h * kPolyB - (w0 & 0xFFu) * kPolyB5 + ((w1 >> 8) & 0xFFu);
+      keep(m[j], h, p + 1, bound);
+      h = h * kPolyB - ((w0 >> 8) & 0xFFu) * kPolyB5 + ((w1 >> 16) & 0xFFu);
+      keep(m[j], h, p + 2, bound);
+      h = h * kPolyB - ((w0 >> 16) & 0xFFu) * kPolyB5 + (w1 >> 24);
+      keep(m[j], h, p + 3, bound);
     }
   }
-  out[r * kSegments + s] = m;
+  if (z != nullptr) {
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) z[i * kSegments + t + j * kThreads] = m[j];
+  }
+
+  // Stage 4: compact the non-EMPTY segment minima, then 64 permutations.
+  const int lane = t & 31, warp = t >> 5;
+  unsigned ballot[kSlots];
+  int in_warp = 0;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    ballot[j] = __ballot_sync(0xFFFFFFFFu, m[j] != kEmpty);
+    in_warp += __popc(ballot[j]);
+  }
+  if (lane == 0) warp_count[warp] = in_warp;
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_count[w];
+    base += w < warp ? c : 0;
+    total += c;
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    if (m[j] != kEmpty) survivors[base + __popc(ballot[j] & below)] = m[j];
+    base += __popc(ballot[j]);
+  }
+  __syncthreads();
+
+  const int perm = t / kLanesPerPerm, sub = t % kLanesPerPerm;
+  const uint32_t a = perms[perm], b = perms[kPerms + perm];
+  uint32_t best = kEmpty;
+  for (int k = sub; k < total; k += kLanesPerPerm)
+    best = min(best, a * survivors[k] + b);
+#pragma unroll
+  for (int d = 1; d < kLanesPerPerm; d <<= 1)
+    best = min(best, __shfl_xor_sync(0xFFFFFFFFu, best, d));
+  if (sub == 0) sig[i * sig_stride + perm] = best;
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int fdfs_survivor_segmin(const void* data, const void* lens, int n,
-                                    long long L, void* out, void* stream) {
+extern "C" int fdfs_sketch_ragged(const void* seg, const void* offsets,
+                                  const void* lens, const void* order,
+                                  const void* perms, int n, void* sig,
+                                  long long sig_stride, void* z,
+                                  void* stream) {
   if (n <= 0) return 0;
-  survivor_segmin_kernel<<<n, kSegments, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lens), L,
-      static_cast<uint32_t*>(out));
+  sketch_ragged_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seg), static_cast<const long long*>(offsets),
+      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(order),
+      static_cast<const uint32_t*>(perms), static_cast<uint32_t*>(sig),
+      sig_stride, static_cast<uint32_t*>(z));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,15 +3,19 @@
 The port of ``fastdfs_tpu/dedup/engine.py``.  Per ingested byte stream:
 
     bytes ──CDC (gear, position-parallel)──► chunk spans
-          ──pad to pow2 buckets──► fixed (row_tile, blen) batches
-          ──SHA-1 kernel + survivor-sketch kernel──► digests + signatures
+          ──one upload: segment + (offset, length) table──► device
+          ──SHA-1 kernel + fused sketch kernel, one launch each──►
+            digests + signatures, one copy back
           ──exact index──► per-chunk write/skip verdicts
           ──LSH index──► file-level near-duplicate candidates
 
-On a CUDA device ``_fingerprint_batch`` launches the two hand-written
-kernels (``ops.cuda_sha1``, ``ops.cuda_minhash``); on the CPU the same
-wrappers take their plain twins.  The file-level MinHash signature is the
-element-wise min over its chunks' signatures.
+The kernels read every chunk where it lies in the segment ("ragged"), so
+a segment costs one launch of each whatever its chunk lengths.  On a CUDA
+device ``_fingerprint_segment`` launches the two hand-written kernels
+(``ops.cuda_sha1``, ``ops.cuda_minhash``); on the CPU the same wrappers
+take their plain twins, which pad the chunks into ``(row_tile, bucket)``
+tiles.  The file-level MinHash signature is the element-wise min over its
+chunks' signatures.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import numpy as np
 import torch
 
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex, MinHashLSHIndex
-from fastdfs_tpu_torch.ops import gear_cdc
-from fastdfs_tpu_torch.ops.cuda_minhash import minhash_batch_cuda
-from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
+from fastdfs_tpu_torch.ops import bucket_lens, gear_cdc
+from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
+                                                sketch_ragged_cuda,
+                                                survivor_ragged_cuda)
+from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
-                                           minhash_batch, perm_tensors)
+                                           perm_tensors, perm_words,
+                                           signature_tiles, sketch_ragged)
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
 
 
@@ -41,8 +48,8 @@ class DedupConfig:
     lsh_bands: int = 16
     near_dup_threshold: float = 0.5
     near_dup_top_k: int = 5
-    # Fixed row tile per batch: chunks are processed in groups of exactly
-    # this many rows (last group padded), one shape per pow2 bucket.
+    # Rows per tile of the plain twins (CPU path and the P != 64 or
+    # shingle != 5 sketch); the CUDA kernels take a segment whole.
     row_tile: int = 256
     # Accepted for field parity with the JAX package's DedupConfig and
     # otherwise ignored: the port routes by device (hand kernels on CUDA,
@@ -89,11 +96,9 @@ class IngestReport:
 
 
 def _bucket_len(n: int, min_size: int, max_size: int) -> int:
-    """Smallest power-of-two >= n, clamped to [min_size, max_size]."""
-    b = max(min_size, 1)
-    while b < n:
-        b <<= 1
-    return min(b, max_size) if n <= max_size else n
+    """The reference engine's bucket rule for one length (``bucket_lens``,
+    which shapes the plain twins' tiles)."""
+    return int(bucket_lens(np.array([n]), min_size, max_size)[0])
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -111,19 +116,23 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-_N_STAGING_SLOTS = 2
+# Zero bytes kept past a segment's end in its staging buffer, so that no
+# kernel load near the last chunk leaves the allocation.
+SEGMENT_SLACK = 64
 
 
-class _Slot:
-    """One host staging slot: a (tile, blen) batch + its lengths, pinned on
-    a CUDA engine, and the event recorded after its last upload."""
+class _Staging:
+    """This thread's host staging for one segment: its bytes (plus
+    SEGMENT_SLACK) and its chunk table (offsets, then lengths and the
+    longest-first order as int32 pairs), pinned on a CUDA engine and grown
+    to the largest segment seen, and the event recorded after the last
+    upload from it."""
 
-    __slots__ = ("batch", "lens", "uploaded")
+    __slots__ = ("seg", "table", "uploaded")
 
-    def __init__(self, tile: int, blen: int, pinned: bool) -> None:
-        self.batch = torch.zeros((tile, blen), dtype=torch.uint8,
-                                 pin_memory=pinned)
-        self.lens = torch.zeros((tile,), dtype=torch.int32, pin_memory=pinned)
+    def __init__(self) -> None:
+        self.seg = torch.empty(0, dtype=torch.uint8)
+        self.table = torch.empty(0, dtype=torch.int64)
         self.uploaded: torch.cuda.Event | None = None
 
 
@@ -151,37 +160,80 @@ class DedupEngine:
                              "on CUDA; use device='cpu' for the plain twins")
         self.exact = ExactDigestIndex()
         self.near = MinHashLSHIndex(self.config.num_perms, self.config.lsh_bands)
-        # The survivor kernel is specialized to the default shingle width;
-        # other widths take the plain twin on the same device.
-        self._sketch_kernel = self.config.shingle == 5
-        self._perms = perm_tensors(self.config.num_perms, self.device)
+        # The sketch kernel is specialized to k = 5 and 64 permutations.
+        # Another permutation count runs stages 1-3 in the kernel and
+        # stage 4 as the plain twin; another shingle width runs the plain
+        # twin throughout, on the same device.
+        cfg = self.config
+        if cfg.shingle == KERNEL_SHINGLE and cfg.num_perms == KERNEL_PERMS:
+            self._perm_words = perm_words(cfg.num_perms, self.device)
+        else:
+            self._perms = perm_tensors(cfg.num_perms, self.device)
         self._staging = threading.local()
 
-    def _fingerprint_batch(self, batch: torch.Tensor, lens: torch.Tensor
-                           ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One (row_tile, blen) batch on the engine's device -> uint32
-        digests (T, 5) and signatures (T, P), left on the device."""
-        cfg = self.config
-        d = sha1_batch_cuda(batch, lens)
-        if self._sketch_kernel:
-            s = minhash_batch_cuda(batch, lens, cfg.num_perms, self._perms)
-        else:
-            s = minhash_batch(batch, lens, cfg.num_perms, cfg.shingle,
-                              self._perms)
-        return d, s
-
-    def _slot(self, tile: int, blen: int, slot: int) -> _Slot:
-        """This thread's staging slot, after its previous upload landed."""
-        slots = getattr(self._staging, "slots", None)
-        if slots is None:
-            slots = self._staging.slots = {}
-        st = slots.get((tile, blen, slot))
+    def _stage(self, seg_len: int, n: int) -> _Staging:
+        """This thread's staging, after its previous upload landed, grown
+        to hold ``seg_len`` bytes plus the slack and an ``n``-chunk table."""
+        st = getattr(self._staging, "st", None)
         if st is None:
-            st = slots[(tile, blen, slot)] = _Slot(
-                tile, blen, pinned=self.device.type == "cuda")
+            st = self._staging.st = _Staging()
         elif st.uploaded is not None:
             st.uploaded.synchronize()
+        pinned = self.device.type == "cuda"
+        if st.seg.shape[0] < seg_len + SEGMENT_SLACK:
+            st.seg = torch.empty(seg_len + SEGMENT_SLACK, dtype=torch.uint8,
+                                 pin_memory=pinned)
+        if st.table.shape[0] < 2 * n:
+            st.table = torch.empty(2 * n, dtype=torch.int64,
+                                   pin_memory=pinned)
         return st
+
+    def _fingerprint_segment(self, data, offsets: np.ndarray,
+                             lens: np.ndarray) -> np.ndarray:
+        """One upload of the segment and its chunk table, one SHA-1 launch,
+        one sketch launch, one copy back: uint32 (N, 5 + P), digests then
+        signatures."""
+        cfg = self.config
+        n = len(lens)
+        seg_len = int(offsets[-1] + lens[-1])
+        st = self._stage(seg_len, n)
+        host = st.seg.numpy()
+        host[:seg_len] = np.frombuffer(data, dtype=np.uint8, count=seg_len)
+        host[seg_len:seg_len + SEGMENT_SLACK] = 0
+        table = st.table.numpy()
+        table[:n] = offsets
+        pairs = table[n:2 * n].view(np.int32)
+        pairs[:n] = lens
+        # Longest first: a warp's SHA-1 lanes run similar chains.
+        pairs[n:] = np.argsort(-lens, kind="stable")
+        seg = st.seg[:seg_len + SEGMENT_SLACK]
+        tab = st.table[:2 * n]
+        if self.device.type == "cuda":
+            seg = seg.to(self.device, non_blocking=True)
+            tab = tab.to(self.device, non_blocking=True)
+            st.uploaded = torch.cuda.Event()
+            st.uploaded.record(torch.cuda.current_stream(self.device))
+        d_off = tab[:n]
+        pairs = tab[n:].view(torch.int32)
+        d_len, d_order = pairs[:n], pairs[n:]
+        out = torch.empty((n, 5 + cfg.num_perms), dtype=torch.int32,
+                          device=self.device)
+        sha1_ragged_cuda(seg, d_off, d_len, d_order, out[:, :5],
+                         cfg.row_tile)
+        if cfg.shingle == KERNEL_SHINGLE and cfg.num_perms == KERNEL_PERMS:
+            sketch_ragged_cuda(seg, d_off, d_len, self._perm_words, d_order,
+                               out[:, 5:], cfg.row_tile)
+        else:
+            if cfg.shingle == KERNEL_SHINGLE:
+                sig = signature_tiles(
+                    survivor_ragged_cuda(seg, d_off, d_len, d_order,
+                                         cfg.row_tile),
+                    cfg.num_perms, self._perms, cfg.row_tile)
+            else:
+                sig = sketch_ragged(seg, d_off, d_len, cfg.num_perms,
+                                    cfg.shingle, self._perms, cfg.row_tile)
+            out[:, 5:] = sig.view(torch.int32)
+        return out.cpu().numpy().view(np.uint32)
 
     # -- pure compute ------------------------------------------------------
 
@@ -194,7 +246,8 @@ class DedupEngine:
 
         ``cuts`` (exclusive chunk ends) skips the chunking pass when the
         caller already ran an identical CDC (the daemon's native chunker
-        shares the gear table).
+        shares the gear table).  They must increase and stay within
+        ``data``; a chunk may start at any byte.
         """
         cfg = self.config
         if cuts is None:
@@ -202,82 +255,25 @@ class DedupEngine:
                                          cfg.max_size,
                                          cdc_policy=cfg.cdc_policy,
                                          device=self.device)
-        spans: list[tuple[int, int]] = []
-        last = 0
-        for c in cuts:
-            spans.append((last, c - last))
-            last = c
-        if not spans:
+        ends = np.asarray(cuts, dtype=np.int64).reshape(-1)
+        if not len(ends):
             return [], np.zeros((0, 5), np.uint32), np.zeros((0, cfg.num_perms), np.uint32)
-
-        digests = np.zeros((len(spans), 5), dtype=np.uint32)
-        sigs = np.zeros((len(spans), cfg.num_perms), dtype=np.uint32)
-        arr = np.frombuffer(data, dtype=np.uint8)
-
-        # Group chunks by pow2 bucket: one fixed shape per bucket.
-        by_bucket: dict[int, list[int]] = {}
-        for i, (off, ln) in enumerate(spans):
-            by_bucket.setdefault(_bucket_len(ln, cfg.min_size, cfg.max_size), []).append(i)
-
-        # Two staging slots per bucket, uploaded with non-blocking copies:
-        # a slot is refilled only after the event recorded behind its
-        # previous upload has fired, so the host never overwrites bytes
-        # still in flight while the next tile's copy overlaps the kernels.
-        # Results stay on the device until ONE copy back per segment.
-        cuda = self.device.type == "cuda"
-        tile = cfg.row_tile
-        groups: list[list[int]] = []
-        outs = []
-        for blen, idxs in sorted(by_bucket.items()):
-            for tile_no, start in enumerate(range(0, len(idxs), tile)):
-                st = self._slot(tile, blen, tile_no % _N_STAGING_SLOTS)
-                group = idxs[start:start + tile]
-                host = st.batch.numpy()
-                host_lens = st.lens.numpy()
-                for row, i in enumerate(group):
-                    off, ln = spans[i]
-                    host[row, :ln] = arr[off:off + ln]
-                    host[row, ln:] = 0
-                    host_lens[row] = ln
-                host[len(group):] = 0
-                host_lens[len(group):] = 0
-                if cuda:
-                    batch = st.batch.to(self.device, non_blocking=True)
-                    lens = st.lens.to(self.device, non_blocking=True)
-                    st.uploaded = torch.cuda.Event()
-                    st.uploaded.record(torch.cuda.current_stream(self.device))
-                else:
-                    batch, lens = st.batch, st.lens
-                d, s = self._fingerprint_batch(batch, lens)
-                outs.append(torch.cat([d.view(torch.int32),
-                                       s.view(torch.int32)], dim=1))
-                groups.append(group)
-        packed = torch.cat(outs).cpu().numpy().view(np.uint32)
-        d_all = packed[:, :5]
-        s_all = packed[:, 5:]
-        for gi, group in enumerate(groups):
-            base = gi * tile
-            for row, i in enumerate(group):
-                digests[i] = d_all[base + row]
-                sigs[i] = s_all[base + row]
-        return spans, digests, sigs
+        lens = np.diff(ends, prepend=0)
+        offsets = ends - lens
+        if (lens < 0).any() or ends[-1] > len(data) or lens.max() >= 1 << 31:
+            raise ValueError("cuts must increase, stay within the data and "
+                             "leave chunks under 2 GiB")
+        packed = self._fingerprint_segment(data, offsets, lens)
+        spans = list(zip(offsets.tolist(), lens.tolist()))
+        return (spans, np.ascontiguousarray(packed[:, :5]),
+                np.ascontiguousarray(packed[:, 5:]))
 
     def warmup(self) -> None:
-        """Run every batch shape the fingerprint path can hit (one per pow2
-        length bucket) once, so the first real upload pays no kernel build
-        or first-launch cost.  The sidecar calls it before it binds."""
-        cfg = self.config
-        blen = max(cfg.min_size, 1)
-        while True:
-            batch = torch.zeros((cfg.row_tile, blen), dtype=torch.uint8,
-                                device=self.device)
-            lens = torch.ones(cfg.row_tile, dtype=torch.int32,
-                              device=self.device)
-            d, s = self._fingerprint_batch(batch, lens)
-            d.cpu(), s.cpu()
-            if blen >= cfg.max_size:
-                break
-            blen = min(blen << 1, cfg.max_size)
+        """Load the kernels and run one small segment through them, so the
+        first real upload pays no kernel build or first-launch cost.  The
+        sidecar calls it before it binds."""
+        data = bytes(range(256)) * 2
+        self.fingerprint(data, cuts=[1, 7, 70, len(data)])
 
     # -- stateful ingest ---------------------------------------------------
 

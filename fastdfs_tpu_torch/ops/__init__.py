@@ -2,6 +2,9 @@
 
 Each kernel module pairs a hand-written CUDA kernel (``cuda_sha1``,
 ``cuda_minhash``) with its plain PyTorch twin (``sha1``, ``minhash``).
+The kernels take a segment as it arrived plus a table of chunk offsets
+and lengths ("ragged"); the twins gather the same chunks into
+zero-padded fixed-shape tiles (``ragged_batches``).
 
 32-bit words: torch's ``uint32`` has no shifts, adds or minimum, so the
 plain twins compute in int64 holding values in ``[0, 2**32)``, masked
@@ -13,6 +16,7 @@ through ``mul32``, which splits one factor into 16-bit halves.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -67,3 +71,96 @@ def check_batch(data: torch.Tensor, lengths: torch.Tensor) -> None:
     if data.device.type == "cuda" and not (data.is_contiguous()
                                            and lengths.is_contiguous()):
         raise ValueError("data and lengths must be contiguous")
+
+
+def check_ragged(seg: torch.Tensor, offsets: torch.Tensor,
+                 lens: torch.Tensor, order: torch.Tensor | None = None
+                 ) -> None:
+    """A ragged kernel wrapper's input contract: a uint8 (S,) segment,
+    int64 (N,) offsets, int32 (N,) lengths and an optional int32 (N,)
+    order, contiguous, on one device.  Chunk i is
+    ``seg[offsets[i]:offsets[i] + lens[i]]``; the caller keeps every
+    chunk inside ``seg`` (the kernels do not read device values back to
+    check)."""
+    if seg.dtype != torch.uint8 or seg.ndim != 1:
+        raise ValueError(f"seg must be uint8 (S,), got {seg.dtype} "
+                         f"{tuple(seg.shape)}")
+    n = offsets.shape[0] if offsets.ndim == 1 else -1
+    for name, t, dtype in (("offsets", offsets, torch.int64),
+                           ("lens", lens, torch.int32),
+                           ("order", order, torch.int32)):
+        if t is None:
+            continue
+        if t.dtype != dtype or t.ndim != 1 or t.shape[0] != n:
+            raise ValueError(f"{name} must be {dtype} (N,) like offsets, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != seg.device:
+            raise ValueError(f"seg on {seg.device}, {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if seg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {seg.device}")
+    if not seg.is_contiguous():
+        raise ValueError("seg must be contiguous")
+
+
+def check_out(out: torch.Tensor, n: int, width: int,
+              device: torch.device) -> None:
+    """An output a ragged kernel writes: int32 (n, width) rows with unit
+    column stride (a column slice of a wider array is fine)."""
+    if (out.dtype != torch.int32 or out.shape != (n, width)
+            or (n and width > 1 and out.stride(1) != 1)
+            or out.device != device):
+        raise ValueError(f"out must be int32 ({n}, {width}) with unit "
+                         f"column stride on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} strides {out.stride()} on "
+                         f"{out.device}")
+
+
+def bucket_lens(lens: np.ndarray, min_size: int, max_size: int
+                ) -> np.ndarray:
+    """The reference engine's bucket rule, vectorized: the smallest
+    power-of-two multiple of ``max(min_size, 1)`` that holds each length,
+    clamped to ``max_size``; a length past ``max_size`` is its own
+    bucket."""
+    lens = np.asarray(lens, dtype=np.int64)
+    b = np.full(lens.shape, max(min_size, 1), dtype=np.int64)
+    while True:
+        short = b < lens
+        if not short.any():
+            break
+        b = np.where(short, b << 1, b)
+    return np.where(lens <= max_size, np.minimum(b, max_size), lens)
+
+
+# The plain twins' tile widths: powers of two from 64 bytes (the smallest
+# CDC chunk the tests configure) to 64 KiB (the default max_size).
+_MIN_BUCKET = 64
+_MAX_BUCKET = 1 << 16
+
+
+def ragged_batches(seg: torch.Tensor, offsets: torch.Tensor,
+                   lens: torch.Tensor, row_tile: int):
+    """Gather ragged chunks into zero-padded ``(<= row_tile, bucket)``
+    batches, one bucket length per group (``bucket_lens`` from 64 bytes
+    to 64 KiB), on the segment's device: the fixed-shape tiles the plain
+    twins take.  Yields
+    ``(rows, batch, batch_lens)``: the chunk indices (an int64 tensor),
+    uint8 rows zero past each length, and their int32 lengths.  One
+    vectorized gather per tile, no loop over chunks."""
+    dev = seg.device
+    lens_h = lens.cpu().numpy().astype(np.int64)
+    buckets = bucket_lens(lens_h, _MIN_BUCKET, _MAX_BUCKET)
+    last = max(seg.shape[0] - 1, 0)
+    for blen in np.unique(buckets):
+        idx = np.nonzero(buckets == blen)[0]
+        for start in range(0, len(idx), row_tile):
+            rows = torch.as_tensor(idx[start:start + row_tile], device=dev)
+            ln = lens[rows]
+            col = torch.arange(int(blen), device=dev)
+            pos = (offsets[rows][:, None] + col).clamp(max=last)
+            inside = col < ln[:, None].to(torch.int64)
+            batch = (torch.where(inside, seg[pos], 0).to(torch.uint8)
+                     if seg.shape[0] else
+                     torch.zeros(inside.shape, dtype=torch.uint8, device=dev))
+            yield rows, batch, ln

@@ -30,11 +30,12 @@ _CFLAGS = ["-O3", "-std=c++17", _ARCH, "-Xptxas=-v", "-Xcompiler", "-fPIC"]
 
 _VP = ctypes.c_void_p
 _SIGNATURES = {
-    # data, lens, n, pitch, out, stream
-    "fdfs_sha1_rows": [_VP, _VP, ctypes.c_int, ctypes.c_longlong, _VP, _VP],
-    # data, lens, n, L, out, stream
-    "fdfs_survivor_segmin": [_VP, _VP, ctypes.c_int, ctypes.c_longlong,
-                             _VP, _VP],
+    # seg, offsets, lens, order, n, out, out_stride, stream
+    "fdfs_sha1_ragged": [_VP, _VP, _VP, _VP, ctypes.c_int, _VP,
+                         ctypes.c_longlong, _VP],
+    # seg, offsets, lens, order, perms, n, sig, sig_stride, z, stream
+    "fdfs_sketch_ragged": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP,
+                           ctypes.c_longlong, _VP, _VP],
 }
 
 

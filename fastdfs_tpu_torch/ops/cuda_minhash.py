@@ -1,55 +1,150 @@
-"""MinHash survivor sketch: the CUDA kernel ``csrc/minhash_survivor.cu``.
+"""MinHash sketch of ragged chunks: the CUDA kernel ``csrc/minhash_survivor.cu``.
 
 Replaces ``fastdfs_tpu/ops/pallas_minhash.py:survivor_segmin_pallas``
-(the Pallas kernel ``_survivor_kernel``, called at pallas_minhash.py:121):
-stages 1-3 of the v2 sketch (shingle hash, value-keyed survivor sampling,
-segment-min compaction) fused into one pass that reads each byte once and
-writes only the ``(N, 1024)`` survivor vector.  One block per row, thread
-``s`` owns segment ``s``; native unsigned min, no bias trick, no atomics.
+(the Pallas kernel ``_survivor_kernel``, called at pallas_minhash.py:121)
+together with the stage 4 that the reference runs after it in XLA: one
+block per chunk computes the shingle hashes, the value-keyed survivors,
+the segment minima and the 64 permutation minima, reading each byte once
+and writing only the ``(N, 64)`` signatures (and ``z`` when asked for).
 
-Bound on an H100: about 6 integer instructions per byte position (the
-hash rolled forward) against one byte read, so operations and HBM bytes
-bound it about equally.  See PERF.md for its measured time beside the
-bound.
+- ``sketch_ragged_cuda``: one launch over every chunk of a segment where
+  it lies; the engine's path.
+- ``survivor_ragged_cuda``: the same launch, read back as stages 1-3
+  (``z``); the engine's path for a permutation count other than 64.
+- ``minhash_batch_cuda`` and ``survivor_segmin_cuda``: the padded
+  ``(N, L)`` entries, thin adapters over the same kernel with
+  ``offsets = i * L`` (the second asks the kernel for ``z``).
 
-Stage 4 (64 permutations over the ~256 survivors) stays the plain
-``ops.minhash.minhash_signature`` on the device, as it stays XLA in the
-reference.  On a CPU tensor the wrapper returns the plain twin
-``ops.minhash.survivor_segmin``; on a CUDA tensor it launches the kernel
-or raises.
+The kernel is specialised to k = 5 and 64 permutations.  Bound on an
+H100: about 6 integer instructions per byte position against one byte
+read, so operations and HBM bytes bound it about equally (PERF.md gives
+the measured time beside it).  On a CPU tensor a wrapper returns its
+plain twin (``ops.minhash.sketch_ragged``, ``minhash_batch``,
+``survivor_segmin``); on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fastdfs_tpu_torch.ops import _build, check_batch, widen
+from fastdfs_tpu_torch.ops import (_build, check_batch, check_out,
+                                   check_ragged, widen)
 from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
                                            EMPTY, NUM_SEGMENTS,
-                                           minhash_signature, survivor_segmin)
+                                           minhash_batch, minhash_signature,
+                                           perm_words, perms_from_words,
+                                           sketch_ragged, survivor_ragged,
+                                           survivor_segmin)
+
+KERNEL_PERMS = 64
+KERNEL_SHINGLE = 5
+
+
+def _launch(seg, offsets, lens, order, words, sig, z) -> None:
+    n = offsets.shape[0]
+    if not n:
+        return
+    if words.dtype != torch.int32 or words.shape != (2, KERNEL_PERMS) \
+            or words.device != seg.device or not words.is_contiguous():
+        raise ValueError(f"perm words must be contiguous int32 "
+                         f"(2, {KERNEL_PERMS}) on {seg.device}")
+    with torch.cuda.device(seg.device):
+        stream = torch.cuda.current_stream(seg.device).cuda_stream
+        rc = _build.library().fdfs_sketch_ragged(
+            seg.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
+            None if order is None else order.data_ptr(), words.data_ptr(), n,
+            sig.data_ptr(), sig.stride(0),
+            None if z is None else z.data_ptr(), stream)
+    _build.check_launch(rc, "sketch_ragged")
+
+
+def sketch_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
+                       lens: torch.Tensor, words: torch.Tensor | None = None,
+                       order: torch.Tensor | None = None,
+                       out: torch.Tensor | None = None, row_tile: int = 256
+                       ) -> torch.Tensor:
+    """uint8 ``(S,)`` segment + int64 offsets, int32 lengths and an
+    optional int32 order ``(N,)`` -> uint32 ``(N, 64)`` signatures
+    (k = 5), bit-identical to ``ops.minhash.sketch_ragged``.
+
+    ``words`` is ``ops.minhash.perm_words(64, device)``, built here if
+    absent (a caller that signs many segments builds it once).  ``out``,
+    if given, is an int32 ``(N, 64)`` view with unit column stride.
+    ``row_tile`` only sizes the plain twin's tiles on the CPU.
+    """
+    check_ragged(seg, offsets, lens, order)
+    n = offsets.shape[0]
+    if out is None:
+        out = torch.empty((n, KERNEL_PERMS), dtype=torch.int32,
+                          device=seg.device)
+    check_out(out, n, KERNEL_PERMS, seg.device)
+    if words is None:
+        words = perm_words(KERNEL_PERMS, seg.device)
+    if seg.device.type == "cpu":
+        sig = sketch_ragged(seg, offsets, lens, KERNEL_PERMS, KERNEL_SHINGLE,
+                            perms_from_words(words), row_tile)
+        out.copy_(sig.view(torch.int32))
+    elif n:
+        _launch(seg, offsets, lens, order, words, out, None)
+        sketch_ragged_cuda.launches += 1
+    return out.view(torch.uint32)
+
+
+sketch_ragged_cuda.launches = 0
+
+
+def survivor_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
+                         lens: torch.Tensor, order: torch.Tensor | None = None,
+                         row_tile: int = 256) -> torch.Tensor:
+    """Stages 1-3 of the fused kernel over ragged chunks, read back
+    through its optional ``z`` output: uint32 ``(N, NUM_SEGMENTS)``,
+    bit-identical to ``ops.minhash.survivor_ragged`` (k = 5).  The
+    engine's path for a permutation count other than 64, whose stage 4
+    then runs as the plain ``signature_tiles``."""
+    check_ragged(seg, offsets, lens, order)
+    if seg.device.type == "cpu":
+        return survivor_ragged(seg, offsets, lens, KERNEL_SHINGLE, row_tile)
+    n = offsets.shape[0]
+    z = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32, device=seg.device)
+    if n:
+        sig = torch.empty((n, KERNEL_PERMS), dtype=torch.int32,
+                          device=seg.device)
+        _launch(seg, offsets, lens, order,
+                perm_words(KERNEL_PERMS, seg.device), sig, z)
+        survivor_ragged_cuda.launches += 1
+    return z.view(torch.uint32)
+
+
+survivor_ragged_cuda.launches = 0
+
+
+def _padded_launch(data, lengths, z=None) -> torch.Tensor:
+    """The fused kernel over padded rows: int32 (N, 64) signatures."""
+    n, L = data.shape
+    dev = data.device
+    sig = torch.empty((n, KERNEL_PERMS), dtype=torch.int32, device=dev)
+    offsets = torch.arange(n, dtype=torch.int64, device=dev) * L
+    _launch(data.reshape(-1), offsets, lengths.clamp(0, L), None,
+            perm_words(KERNEL_PERMS, dev), sig, z)
+    return sig
 
 
 def survivor_segmin_cuda(data: torch.Tensor, lengths: torch.Tensor,
                          k: int = DEFAULT_SHINGLE) -> torch.Tensor:
     """uint8 ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, NUM_SEGMENTS)``,
-    bit-identical to ``ops.minhash.survivor_segmin``.  Rows must be zero
-    past their length."""
+    bit-identical to ``ops.minhash.survivor_segmin``: stages 1-3 of the
+    fused kernel, read back through its optional ``z`` output."""
     check_batch(data, lengths)
     if data.device.type == "cpu":
         return survivor_segmin(data, lengths, k)
-    if k != 5:
-        raise NotImplementedError("the survivor kernel is specialized to k=5")
-    n, L = data.shape
-    out = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32, device=data.device)
+    if k != KERNEL_SHINGLE:
+        raise NotImplementedError("the sketch kernel is specialized to k=5")
+    n = data.shape[0]
+    z = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32, device=data.device)
     if n:
-        with torch.cuda.device(data.device):
-            stream = torch.cuda.current_stream(data.device).cuda_stream
-            rc = _build.library().fdfs_survivor_segmin(
-                data.data_ptr(), lengths.data_ptr(), n, L, out.data_ptr(),
-                stream)
-        _build.check_launch(rc, "survivor_segmin")
+        _padded_launch(data, lengths, z)
         survivor_segmin_cuda.launches += 1
-    return out.view(torch.uint32)
+    return z.view(torch.uint32)
 
 
 survivor_segmin_cuda.launches = 0
@@ -58,7 +153,23 @@ survivor_segmin_cuda.launches = 0
 def minhash_batch_cuda(data: torch.Tensor, lengths: torch.Tensor,
                        num_perms: int = DEFAULT_PERMS, perms=None
                        ) -> torch.Tensor:
-    """Kernel-path twin of ``ops.minhash.minhash_batch`` (k=5): uint8
-    ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, num_perms)``."""
-    z = widen(survivor_segmin_cuda(data, lengths))
-    return minhash_signature(z, num_perms, z != int(EMPTY), perms)
+    """Kernel-path twin of ``ops.minhash.minhash_batch`` (k = 5): uint8
+    ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, num_perms)``.  With 64
+    permutations the fused kernel signs the rows; with another count it
+    yields ``z`` and stage 4 runs as the plain ``minhash_signature`` with
+    ``perms`` (``ops.minhash.perm_tensors``)."""
+    check_batch(data, lengths)
+    if data.device.type == "cpu":
+        return minhash_batch(data, lengths, num_perms, DEFAULT_SHINGLE, perms)
+    if num_perms != KERNEL_PERMS:
+        z = widen(survivor_segmin_cuda(data, lengths))
+        return minhash_signature(z, num_perms, z != int(EMPTY), perms)
+    sig = torch.empty((data.shape[0], KERNEL_PERMS), dtype=torch.int32,
+                      device=data.device)
+    if data.shape[0]:
+        sig = _padded_launch(data, lengths)
+        minhash_batch_cuda.launches += 1
+    return sig.view(torch.uint32)
+
+
+minhash_batch_cuda.launches = 0

@@ -12,10 +12,10 @@ outputs are bit-identical:
 4. **Permutation MinHash over survivors**: ``P`` universal hashes
    ``a_j * x + b_j`` min-reduced over the non-``EMPTY`` entries of ``z``.
 
-Stages 1-3 are what the CUDA survivor kernel (``cuda_minhash``) computes;
-this module is its reference and the path a CPU tensor takes.  Stage 4
-touches 1/256th of the data and stays plain PyTorch on the device, as it
-stays XLA in the reference.  Words are int64 masked to 32 bits inside;
+The CUDA sketch kernel (``cuda_minhash``) computes all four stages in
+one pass over ragged chunks; this module is its reference
+(``sketch_ragged``) and the path a CPU tensor takes.  Words are int64
+masked to 32 bits inside;
 public functions return uint32 tensors (see ``ops/__init__.py``).
 """
 
@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fastdfs_tpu_torch.ops import MASK32, mul32, narrow, split16, widen
+from fastdfs_tpu_torch.ops import (MASK32, mul32, narrow, ragged_batches,
+                                   split16, widen)
 
 DEFAULT_SHINGLE = 5
 DEFAULT_PERMS = 64
@@ -57,6 +58,19 @@ def perm_tensors(num_perms: int, device: str | torch.device
     av = torch.as_tensor(a.astype(np.int64), device=device)[:, None]
     bv = torch.as_tensor(b.astype(np.int64), device=device)[:, None]
     return split16(av), bv
+
+
+def perm_words(num_perms: int, device: str | torch.device) -> torch.Tensor:
+    """Stage 4's constants as the sketch kernel reads them: int32 (2, P),
+    the uint32 bit patterns of ``a`` then ``b``."""
+    a, b = _perm_constants(num_perms)
+    return torch.as_tensor(np.stack([a, b]).view(np.int32), device=device)
+
+
+def perms_from_words(words: torch.Tensor):
+    """``perm_words`` -> the ``perm_tensors`` form the plain stage 4 takes."""
+    a = widen(words[0])[:, None]
+    return split16(a), widen(words[1])[:, None]
 
 
 def _shingle_hashes(d: torch.Tensor, k: int) -> torch.Tensor:
@@ -154,6 +168,50 @@ def minhash_batch(data, lengths, num_perms: int = DEFAULT_PERMS,
     -> uint32 ``(N, num_perms)``.  Rows must be zero past their length."""
     z = widen(survivor_segmin(data, lengths, k))
     return minhash_signature(z, num_perms, z != int(EMPTY), perms)
+
+
+def survivor_ragged(seg: torch.Tensor, offsets: torch.Tensor,
+                    lens: torch.Tensor, k: int = DEFAULT_SHINGLE,
+                    row_tile: int = 256) -> torch.Tensor:
+    """Stages 1-3 of ragged chunks: uint8 ``(S,)`` segment + int64 offsets
+    and int32 lengths ``(N,)`` -> uint32 ``(N, NUM_SEGMENTS)``.  The
+    chunks go through ``survivor_segmin`` in zero-padded
+    ``(row_tile, bucket)`` tiles (``ops.ragged_batches``)."""
+    z = torch.zeros((offsets.shape[0], NUM_SEGMENTS), dtype=torch.int64,
+                    device=seg.device)
+    for rows, batch, ln in ragged_batches(seg, offsets, lens, row_tile):
+        z[rows] = widen(survivor_segmin(batch, ln, k))
+    return narrow(z)
+
+
+def signature_tiles(z: torch.Tensor, num_perms: int = DEFAULT_PERMS,
+                    perms=None, row_tile: int = 256) -> torch.Tensor:
+    """Stage 4 over survivor vectors, ``row_tile`` rows at a time (the
+    ``(rows, P, 512)`` intermediate stays small): uint32
+    ``(N, NUM_SEGMENTS)`` -> uint32 ``(N, num_perms)``."""
+    if perms is None:
+        perms = perm_tensors(num_perms, z.device)
+    sig = torch.empty((z.shape[0], num_perms), dtype=torch.int32,
+                      device=z.device)
+    for start in range(0, z.shape[0], row_tile):
+        zt = widen(z[start:start + row_tile])
+        sig[start:start + row_tile] = minhash_signature(
+            zt, num_perms, zt != int(EMPTY), perms).view(torch.int32)
+    return sig.view(torch.uint32)
+
+
+def sketch_ragged(seg: torch.Tensor, offsets: torch.Tensor,
+                  lens: torch.Tensor, num_perms: int = DEFAULT_PERMS,
+                  k: int = DEFAULT_SHINGLE, perms=None, row_tile: int = 256,
+                  with_z: bool = False):
+    """Signatures of ragged chunks (the fused sketch kernel's plain twin):
+    uint8 ``(S,)`` segment + int64 offsets and int32 lengths ``(N,)`` ->
+    uint32 ``(N, num_perms)``, and with ``with_z`` also the uint32
+    ``(N, NUM_SEGMENTS)`` survivor vectors: ``survivor_ragged`` then
+    ``signature_tiles``."""
+    z = survivor_ragged(seg, offsets, lens, k, row_tile)
+    sig = signature_tiles(z, num_perms, perms, row_tile)
+    return (sig, z) if with_z else sig
 
 
 def estimate_jaccard(sig_a: torch.Tensor, sig_b: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fastdfs_tpu_torch.ops import MASK32, narrow
+from fastdfs_tpu_torch.ops import MASK32, narrow, ragged_batches, widen
 
 _H0 = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0)
 _K = (0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xCA62C1D6)
@@ -106,6 +106,19 @@ def sha1_batch(data, lengths=None) -> torch.Tensor:
         lengths = torch.as_tensor(lengths, dtype=torch.int32,
                                   device=data.device)
     return narrow(_sha1_padded(data, lengths, int(data.shape[1])))
+
+
+def sha1_ragged(seg: torch.Tensor, offsets: torch.Tensor, lens: torch.Tensor,
+                row_tile: int = 256) -> torch.Tensor:
+    """Digests of ragged chunks (the ragged kernel's plain twin): uint8
+    ``(S,)`` segment + int64 offsets and int32 lengths ``(N,)`` -> uint32
+    ``(N, 5)``.  The chunks go through ``sha1_batch`` in zero-padded
+    ``(row_tile, bucket)`` tiles (``ops.ragged_batches``)."""
+    out = torch.zeros((offsets.shape[0], 5), dtype=torch.int64,
+                      device=seg.device)
+    for rows, batch, ln in ragged_batches(seg, offsets, lens, row_tile):
+        out[rows] = widen(sha1_batch(batch, ln))
+    return narrow(out)
 
 
 def _host_u32(digest_words) -> np.ndarray:

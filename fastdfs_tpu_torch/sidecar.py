@@ -60,13 +60,16 @@ import torch
 
 from fastdfs_tpu_torch.common.protocol import (HEADER_SIZE, StorageCmd,
                                                pack_header, unpack_header)
-from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
+from fastdfs_tpu_torch.dedup.engine import (SEGMENT_SLACK, DedupConfig,
+                                            DedupEngine)
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex
-from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
+from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import CDC_SPEC_VERSION
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
 
 _I64 = struct.Struct(">q")
+# DEDUP_VERIFY's per-chunk header: 8B BE length + 20B expected raw SHA1.
+_VERIFY_ENTRY = np.dtype([("length", ">i8"), ("digest", "S20")])
 
 _SESSION_TTL = 600.0  # seconds before an uncommitted session is reaped
 
@@ -95,8 +98,8 @@ class DedupSidecar:
 
     One engine (on one device) serves every daemon connection; session,
     stats and index mutation are serialized under a lock — batching
-    happens inside the engine's bucketed kernel launches, not across
-    requests.
+    happens inside the engine (one launch of each kernel per segment),
+    not across requests.
     """
 
     def __init__(self, socket_path: str, state_dir: str | None = None,
@@ -325,8 +328,8 @@ class DedupSidecar:
         bytes (0 = match, 1 = mismatch).
 
         Pure compute — no index or session state — so it runs entirely
-        outside the engine lock, through the SHA-1 kernel (one padded
-        (N, L) batch per request).  A failed kernel answers status 5
+        outside the engine lock, through the SHA-1 kernel (one ragged
+        launch over the payloads as they arrived).  A failed kernel answers status 5
         (EIO): the daemon then verifies with its own host SHA1, so a
         verify answer is never wrong and a broken kernel is never hidden.
         """
@@ -335,46 +338,45 @@ class DedupSidecar:
         count = _I64.unpack_from(body)[0]
         if count < 0 or 8 + count * 28 > len(body):
             return 22, b""
-        lengths = []
-        digests = []
-        for i in range(count):
-            off = 8 + i * 28
-            ln = _I64.unpack_from(body, off)[0]
-            if ln < 0:
-                return 22, b""
-            lengths.append(ln)
-            digests.append(body[off + 8:off + 28])
-        payloads = body[8 + count * 28:]
-        if sum(lengths) != len(payloads):
+        head = np.frombuffer(body, dtype=_VERIFY_ENTRY, count=count, offset=8)
+        lengths = head["length"].astype(np.int64)
+        start = 8 + count * 28
+        rest = len(body) - start
+        if ((count and (lengths.min() < 0 or lengths.max() > rest))
+                or int(lengths.sum()) != rest):
             return 22, b""
-        chunks = []
-        off = 0
-        for ln in lengths:
-            chunks.append(payloads[off:off + ln])
-            off += ln
         try:
-            got = self._batch_sha1(chunks)
+            got = self._batch_sha1(body, start, lengths)
         except Exception as e:  # noqa: BLE001 — report, never fall back
             print(f"dedup sidecar: batched verify failed "
                   f"({type(e).__name__}: {e})", flush=True)
             return 5, b""
-        mask = bytes(0 if g == d else 1 for g, d in zip(got, digests))
-        return 0, mask
+        want = np.frombuffer(head["digest"].tobytes(), dtype=np.uint8)
+        return 0, (got != want.reshape(count, 20)).any(axis=1).astype(
+            np.uint8).tobytes()
 
-    def _batch_sha1(self, chunks: list[bytes]) -> list[bytes]:
-        """One SHA-1 kernel launch over zero-padded rows."""
-        if not chunks:
-            return []
-        max_len = max(len(c) for c in chunks)
-        batch = np.zeros((len(chunks), max(max_len, 1)), dtype=np.uint8)
-        lens = np.zeros((len(chunks),), dtype=np.int32)
-        for i, c in enumerate(chunks):
-            batch[i, :len(c)] = np.frombuffer(c, dtype=np.uint8)
-            lens[i] = len(c)
-        raw = digest_bytes(sha1_batch_cuda(
-            torch.from_numpy(batch).to(self.device),
-            torch.from_numpy(lens).to(self.device)))
-        return [raw[i * 20:(i + 1) * 20] for i in range(len(chunks))]
+    def _batch_sha1(self, body: bytes, start: int,
+                    lengths: np.ndarray) -> np.ndarray:
+        """One ragged SHA-1 launch over the payloads as they arrived
+        (``body[start:]``, chunk i at the running sum of the lengths before
+        it) -> uint8 (N, 20) raw digests."""
+        n = len(lengths)
+        if not n:
+            return np.zeros((0, 20), dtype=np.uint8)
+        if lengths.max() >= 1 << 31:
+            raise ValueError("a verify chunk of 2 GiB or more")
+        size = len(body) - start
+        seg = torch.zeros(size + SEGMENT_SLACK, dtype=torch.uint8)
+        seg.numpy()[:size] = np.frombuffer(body, dtype=np.uint8, offset=start)
+        offsets = np.cumsum(lengths) - lengths
+        order = np.argsort(-lengths, kind="stable").astype(np.int32)
+        dev = self.device
+        digests = sha1_ragged_cuda(
+            seg.to(dev), torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev),
+            torch.from_numpy(order).to(dev))
+        return np.frombuffer(digest_bytes(digests),
+                             dtype=np.uint8).reshape(n, 20)
 
     def _neardups(self, body: bytes) -> tuple[int, bytes]:
         """Ranked near-dup report for a stored file id (the production
