@@ -30,10 +30,26 @@ before the last line):
    launched each kernel exactly once (verify: one SHA-1 launch).
 4. Where one segment's engine time goes: a torch.profiler pass over
    ``DedupEngine.fingerprint``, device time by kernel and the idle share.
+5. The client's upload fingerprint: ``client.fingerprint_buffer`` on the
+   card over corpus file A and a second seeded payload, both exactly
+   2^26 bytes (so the device CDC's power-of-two buffer has no slack of
+   its own), equal to ``chunk_stream_np`` plus hashlib, one SHA-1 launch
+   per call; the median wall time of 5 calls on A, the SHA-1 kernel's
+   share of it, and the device CDC's time, launches and bound.
+6. Streaming: phase 2's segment as padded ``(256, 65536)`` batches
+   through ``sha1_batch_cuda`` with ``ops.streaming.stream_batches``, in
+   order and equal to direct calls and hashlib, timed at depth 1 and 2.
+7. Reed-Solomon: a seeded 64 MB stripe encoded on the card at RS(4,2),
+   RS(10,4) and RS(32,8) (the storage config's clamp), each parity equal
+   to ``gf_matmul_np``, then rebuilt on the card from the last k of the
+   k + m shards; the median ms of encode and rebuild beside the bound.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
-exits non-zero and prints no result.
+The kernels' launch counts are those of the main-path runs in phases 3,
+5 and 6 (each counted from 0 just before its run); launches made only to
+time or compare a kernel are not counted.  The second-to-last line is a
+JSON object with one entry per kernel; the last is ``{"ok": true,
+"device": {...}}``.  Without a CUDA card the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -54,15 +70,18 @@ import time
 import numpy as np
 import torch
 
+from fastdfs_tpu_torch.client import fingerprint_buffer
 from fastdfs_tpu_torch.common import protocol
-from fastdfs_tpu_torch.dedup.engine import SEGMENT_SLACK, DedupConfig
-from fastdfs_tpu_torch.ops import _build, minhash, sha1
+from fastdfs_tpu_torch.dedup.engine import DedupConfig
+from fastdfs_tpu_torch.ops import SEGMENT_SLACK, _build, minhash, rs_code, sha1
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_np
+from fastdfs_tpu_torch.ops.gear_cdc import (chunk_stream_np, device_cuts,
+                                            gear_candidates, upload_padded)
+from fastdfs_tpu_torch.ops.streaming import stream_batches
 from fastdfs_tpu_torch.sidecar import DedupSidecar
 
 SEED = 20261016
@@ -103,6 +122,17 @@ STAGE4_OPS_PER_SURVIVOR_PERM = 2
 # blocks x 80 x 2 x 4 cycles.
 SHA1_CHAIN_INSTR_PER_ROUND = 2
 ALU_LATENCY_CYCLES = 4
+# Device code that is not a TPU kernel (plain PyTorch in the port), with
+# the fewest sm_90a integer instructions its work needs:
+# - Gear CDC per byte position: one PRMT to take the byte, the inline
+#   fmix32 table value (one IADD3 for b + 1, three xor-shifts of SHF and
+#   LOP3, two IMAD), one LEA rolling h = (h << 1) + g, one LOP3 for the
+#   candidate test (predicate out).  1 + 9 + 1 + 1 = 12.
+# - GF(2^8) matmul per output byte and shard column: one table lookup
+#   (LDS from a 64 KiB table in shared memory) and a quarter of a LOP3
+#   (the xor works on four packed bytes).  1.25.
+CDC_OPS_PER_POSITION = 12
+GF_OPS_PER_PRODUCT = 1.25
 
 _I64 = struct.Struct(">q")
 
@@ -165,6 +195,39 @@ def sha1_bound(lens: np.ndarray) -> tuple[float, str]:
                * ALU_LATENCY_CYCLES / SM_CLOCK_HZ)
     return (max(t_bytes, t_ops, t_chain) * 1e3,
             "bytes" if t_bytes >= max(t_ops, t_chain) else "operations")
+
+
+def cdc_bound(n: int, k: int) -> tuple[float, str]:
+    """(ms, by) of the device CDC pass over n bytes: each byte read once
+    and k int64 candidate slots written, against CDC_OPS_PER_POSITION."""
+    t_bytes = float(n + 8 * k) / HBM_BYTES_PER_S
+    t_ops = float(n) * CDC_OPS_PER_POSITION / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gf_bound(rows: int, k: int, length: int) -> tuple[float, str]:
+    """(ms, by) of a (rows x k) GF(2^8) matmul over shards of ``length``
+    bytes: (k + rows) * length bytes, against rows * k * length lookups."""
+    t_bytes = float((k + rows) * length) / HBM_BYTES_PER_S
+    t_ops = float(rows * k * length) * GF_OPS_PER_PRODUCT / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def device_profile(fn) -> tuple[float, dict[str, tuple[float, int]]]:
+    """One call of ``fn`` under torch.profiler: its wall ms and, per
+    device kernel or copy name, (device us, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    return wall_ms, {ev.key: (ev.self_device_time_total, ev.count)
+                     for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def sketch_bound(lens: np.ndarray, survivors: int) -> tuple[float, str]:
@@ -318,7 +381,7 @@ def check_padded_adapters(dev, rng) -> None:
     print("  padded (256, 2048) adapters of both kernels: bit-exact")
 
 
-def phase_kernels(dev, rec_sha1, rec_sketch) -> None:
+def phase_kernels(dev, rec_sha1, rec_sketch) -> tuple[bytes, list[int]]:
     rng = np.random.default_rng(SEED)
     print("phase 2: ragged kernels vs plain twins on the card (ms = one "
           "launch over the whole segment; bound = least time for its work)")
@@ -328,11 +391,12 @@ def phase_kernels(dev, rec_sha1, rec_sketch) -> None:
     lens = [b - a for a, b in zip(offsets, cuts)]
     check_segment(dev, f"{SEGMENT >> 20} MB segment", seg, offsets, lens,
                   rec_sha1, rec_sketch, timed=True)
-    seg, offsets, lens = edge_segment(rng)
-    check_segment(dev, "edge segment", seg, offsets, lens, rec_sha1,
+    edge, offsets, lens = edge_segment(rng)
+    check_segment(dev, "edge segment", edge, offsets, lens, rec_sha1,
                   rec_sketch, timed=False)
     check_whole_segment_chunk(dev, rng)
     check_padded_adapters(dev, rng)
+    return seg, cuts
 
 
 class Client:
@@ -532,8 +596,6 @@ def phase_profile(dev) -> None:
     """Where one 64 MB 125 segment's engine time goes: a torch.profiler
     pass over DedupEngine.fingerprint (after the counters were read, so
     these launches are not counted), device time summed by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from fastdfs_tpu_torch.dedup.engine import DedupEngine
 
     rng = np.random.default_rng(SEED + 2)
@@ -541,24 +603,16 @@ def phase_profile(dev) -> None:
     cuts = chunk_stream_np(data)
     engine = DedupEngine(DedupConfig(), device=dev)
     engine.fingerprint(data, cuts=cuts)              # staging allocated
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        engine.fingerprint(data, cuts=cuts)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
+    wall_ms, kernels = device_profile(
+        lambda: engine.fingerprint(data, cuts=cuts))
     groups = {"sha1 kernel": 0.0, "sketch kernel": 0.0, "copies": 0.0,
               "other device ops": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.self_device_time_total
-        if "sha1_ragged_kernel" in ev.key:
+    for key, (us, _) in kernels.items():
+        if "sha1_ragged_kernel" in key:
             groups["sha1 kernel"] += us
-        elif "sketch_ragged_kernel" in ev.key:
+        elif "sketch_ragged_kernel" in key:
             groups["sketch kernel"] += us
-        elif "Memcpy" in ev.key or "Memset" in ev.key:
+        elif is_copy(key):
             groups["copies"] += us
         else:
             groups["other device ops"] += us
@@ -573,6 +627,179 @@ def phase_profile(dev) -> None:
         print(f"  device {name}: {us / 1e3:.3f} ms")
     print(f"  device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} of the call's wall time")
+
+
+def is_copy(key: str) -> bool:
+    return "Memcpy" in key or "Memset" in key
+
+
+def fingerprint_pairs(data: bytes, cuts: list[int]) -> list[tuple[int, bytes]]:
+    """(length, raw SHA-1) of each chunk, by hashlib."""
+    return [(b - a, hashlib.sha1(data[a:b]).digest())
+            for a, b in zip([0] + cuts[:-1], cuts)]
+
+
+def phase_client(dev, card: str) -> int:
+    """The client's upload fingerprint on the card; returns the SHA-1
+    launches of its main-path calls."""
+    # Corpus file A of phase 3 (the first draw of its generator), and a
+    # second payload of the same 2^26 bytes: seeded random bytes with a
+    # 1 MB run of one repeated 4 KiB block every 8 MB, so chunks cut at
+    # max_size and repeated digests occur.
+    a = np.random.default_rng(SEED + 1).integers(0, 256, SEGMENT,
+                                                 dtype=np.uint8).tobytes()
+    rng = np.random.default_rng(SEED + 3)
+    r = rng.integers(0, 256, SEGMENT, dtype=np.uint8)
+    run = np.resize(rng.integers(0, 256, 4096, dtype=np.uint8), SEGMENT // 64)
+    for start in range(0, SEGMENT, SEGMENT // 8):
+        r[start:start + len(run)] = run
+    payloads = {"A": a, "R": r.tobytes()}
+    print(f"phase 5: client fingerprint_buffer on the card, two payloads "
+          f"of exactly 2^{SEGMENT.bit_length() - 1} bytes (no slack of the "
+          f"CDC buffer's own)")
+    sha1_ragged_cuda.launches = 0
+    got = {}
+    for name, data in payloads.items():
+        before = sha1_ragged_cuda.launches
+        got[name] = fingerprint_buffer(data, device=dev)
+        check(sha1_ragged_cuda.launches == before + 1,
+              f"{name}: fingerprint_buffer did not launch SHA-1 once")
+    walls = []
+    for _ in range(5):
+        before = sha1_ragged_cuda.launches
+        t0 = time.monotonic()
+        fps = fingerprint_buffer(payloads["A"], device=dev)
+        walls.append((time.monotonic() - t0) * 1e3)
+        check(sha1_ragged_cuda.launches == before + 1,
+              "A: fingerprint_buffer did not launch SHA-1 once")
+        check(fps == got["A"], "A: fingerprints differ between calls")
+    launches = sha1_ragged_cuda.launches
+
+    for name, data in payloads.items():
+        cuts = chunk_stream_np(data)
+        want = fingerprint_pairs(data, cuts)
+        check([(f.length, f.digest) for f in got[name]] == want,
+              f"{name}: fingerprint_buffer != chunk_stream_np + hashlib")
+        print(f"  {name}: {len(cuts)} chunks, "
+              f"{len(set(d for _, d in want))} distinct digests, longest "
+              f"{max(n for n, _ in want)} B; == chunk_stream_np + hashlib, "
+              f"one SHA-1 launch per call")
+
+    # The SHA-1 kernel alone on A's chunk table, and the device CDC pass
+    # alone on A's staged buffer (CUDA-event medians, not counted).
+    data = payloads["A"]
+    cuts = chunk_stream_np(data)
+    offsets = [0] + cuts[:-1]
+    lens = [b - o for o, b in zip(offsets, cuts)]
+    d_seg, d_off, d_len, d_ord = on_card(dev, data, offsets, lens)
+    sha1_ms = median_ms(lambda: sha1_ragged_cuda(d_seg, d_off, d_len, d_ord))
+    host, staged = upload_padded(data, dev, slack=SEGMENT_SLACK)
+    check(device_cuts(host, staged, len(data)) == cuts,
+          "device CDC != chunk_stream_np on A")
+    bits = DedupConfig().avg_bits
+    k = max(SEGMENT >> (bits - 2), 256)              # chunk_stream's k
+    cdc_ms = median_ms(lambda: gear_candidates(staged[:SEGMENT], SEGMENT,
+                                               bits, k))
+    cdc_bound_ms, cdc_by = cdc_bound(SEGMENT, k)
+    wall_ms, kernels = device_profile(lambda: fingerprint_buffer(data,
+                                                                device=dev))
+    cdc = [(us, c) for key, (us, c) in kernels.items()
+           if "sha1_ragged_kernel" not in key and not is_copy(key)]
+    cdc_launches = sum(c for _, c in cdc)
+    busy = {"sha1 kernel": sum(us for key, (us, _) in kernels.items()
+                               if "sha1_ragged_kernel" in key),
+            "CDC ops": sum(us for us, _ in cdc),
+            "copies": sum(us for key, (us, _) in kernels.items()
+                          if is_copy(key))}
+    wall = statistics.median(walls)
+    print(f"  fingerprint_buffer(A) wall, median of 5: {wall:.1f} ms "
+          f"(all: {', '.join(f'{w:.1f}' for w in walls)}); SHA-1 kernel "
+          f"{sha1_ms:.4f} ms, {sha1_ms / wall:.4f} of it  [{card}]")
+    print(f"  device CDC (gear_candidates) on A: {cdc_ms:.4f} ms, "
+          f"{cdc_launches} device kernels per fingerprint_buffer call "
+          f"besides SHA-1 and copies; bound {cdc_bound_ms:.4f} ms by "
+          f"{cdc_by}  [{card}]")
+    busy_ms = sum(busy.values()) / 1e3
+    print(f"  one call under torch.profiler: wall {wall_ms:.1f} ms; device "
+          + ", ".join(f"{name} {us / 1e3:.3f} ms" for name, us in busy.items())
+          + f"; busy {busy_ms:.3f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    return launches
+
+
+def phase_streaming(dev, card: str, seg: bytes, cuts: list[int]) -> int:
+    """Phase 2's segment through ``stream_batches``; returns the SHA-1
+    launches of the streamed runs."""
+    rows, width = 256, 65536
+    offsets = [0] + cuts[:-1]
+    n = len(cuts)
+    nb = -(-n // rows)
+    host = np.zeros((nb, rows, width), dtype=np.uint8)
+    lens = np.zeros((nb, rows), dtype=np.int32)
+    buf = np.frombuffer(seg, dtype=np.uint8)
+    for i, (o, e) in enumerate(zip(offsets, cuts)):
+        host[i // rows, i % rows, :e - o] = buf[o:e]
+        lens[i // rows, i % rows] = e - o
+    batches = [(host[b], lens[b]) for b in range(nb)]
+    print(f"phase 6: stream_batches over phase 2's segment: {n} chunks in "
+          f"{nb} padded ({rows}, {width}) batches through sha1_batch_cuda")
+    direct = [sha1_batch_cuda(torch.from_numpy(x).to(dev),
+                              torch.from_numpy(ln).to(dev)).cpu().numpy()
+              for x, ln in batches]
+    raw = sha1.digest_bytes(np.concatenate(direct)[:n])
+    check(all(raw[i * 20:(i + 1) * 20] == hashlib.sha1(seg[o:e]).digest()
+              for i, (o, e) in enumerate(zip(offsets, cuts))),
+          "direct sha1_batch_cuda != hashlib")
+    sha1_batch_cuda.launches = 0
+    times = []
+    for depth in (1, 2, 2, 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = list(stream_batches(iter(batches), sha1_batch_cuda,
+                                  depth=depth, device=dev))
+        times.append((depth, (time.monotonic() - t0) * 1e3))
+        check(len(out) == nb and all(np.array_equal(o, d)
+                                     for o, d in zip(out, direct)),
+              f"stream_batches at depth {depth} != direct calls")
+    launches = sha1_batch_cuda.launches
+    check(launches == 4 * nb, f"{launches} SHA-1 launches, not {4 * nb}")
+    print(f"  in order and == direct calls == hashlib; wall ms (depth): "
+          + ", ".join(f"{t:.1f} ({d})" for d, t in times)
+          + f"; {host.nbytes >> 20} MB of padded batches each  [{card}]")
+    return launches
+
+
+def phase_rs(dev, card: str) -> None:
+    rng = np.random.default_rng(SEED + 4)
+    stripe = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
+    print(f"phase 7: Reed-Solomon on the card, a seeded {SEGMENT >> 20} MB "
+          f"stripe (ms: CUDA-event median of 10 calls)")
+    for k, m in ((4, 2), (10, 4), (32, 8)):
+        shards = rs_code.split_stripe(stripe, k)
+        length = shards.shape[1]
+        d = torch.from_numpy(shards).to(dev)
+        parity = rs_code.rs_encode(d, m)
+        check(parity.device == d.device, "parity left the card")
+        check(np.array_equal(parity.cpu().numpy(), rs_code.gf_matmul_np(
+            rs_code.parity_matrix(k, m), shards)),
+            f"RS({k},{m}) parity != gf_matmul_np")
+        present = list(range(m, k + m))                  # first m lost
+        survivors = torch.cat([d[m:], parity])
+        check(torch.equal(rs_code.rs_reconstruct(survivors, present, k, m),
+                          d), f"RS({k},{m}) rebuild != data")
+        enc_ms = median_ms(lambda: rs_code.rs_encode(d, m), n=10)
+        dec_ms = median_ms(lambda: rs_code.rs_reconstruct(
+            survivors, present, k, m), n=10)
+        _, kernels = device_profile(lambda: rs_code.rs_encode(d, m))
+        launches = sum(c for key, (_, c) in kernels.items()
+                       if not is_copy(key))
+        enc_bound, enc_by = gf_bound(m, k, length)
+        dec_bound, dec_by = gf_bound(k, k, length)
+        print(f"  RS({k},{m}), shards of {length} B: parity == gf_matmul_np, "
+              f"rebuilt from the last {k} shards == data; encode "
+              f"{enc_ms:.4f} ms ({launches} device kernels; bound "
+              f"{enc_bound:.4f} by {enc_by}), rebuild {dec_ms:.4f} ms "
+              f"(bound {dec_bound:.4f} by {dec_by})  [{card}]")
 
 
 def main() -> int:
@@ -598,11 +825,23 @@ def main() -> int:
     rec_sketch = KernelRecord("sketch",
                             "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
                             "fastdfs_tpu/ops/pallas_minhash.py:121")
-    phase_kernels(dev, rec_sha1, rec_sketch)
+    marks = [time.monotonic()]
+    seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch)
+    marks.append(time.monotonic())
     rec_sha1.launches, rec_sketch.launches = phase_socket(dev, card)
+    marks.append(time.monotonic())
     phase_profile(dev)
+    marks.append(time.monotonic())
+    rec_sha1.launches += phase_client(dev, card)
+    marks.append(time.monotonic())
+    rec_sha1.launches += phase_streaming(dev, card, seg, cuts)
+    marks.append(time.monotonic())
+    phase_rs(dev, card)
+    marks.append(time.monotonic())
 
-    print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s")
+    print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
+          f"(phases 2-7: " + ", ".join(
+              f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)
     print(json.dumps({"kernels": [rec_sha1.json(), rec_sketch.json()]}))
     print(json.dumps({"ok": True, "device": {

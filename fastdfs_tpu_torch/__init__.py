@@ -10,7 +10,10 @@ daemon's accelerator half.  ``sidecar.DedupSidecar`` speaks the same
 unix-socket opcodes as ``fastdfs_tpu.sidecar`` and runs
 ``dedup.DedupEngine``, whose two device kernels (batched SHA-1 and the
 MinHash survivor sketch) are hand-written CUDA C++ under ``csrc/``, built
-with ``nvcc`` on first use (``ops/_build.py``).
+with ``nvcc`` on first use (``ops/_build.py``).  Beside it: the client's
+upload fingerprint (``client.fingerprint_buffer``, through the same
+SHA-1 kernel), Reed-Solomon coding (``ops.rs_code``) and host-to-device
+streaming (``ops.streaming``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper takes its plain PyTorch twin.  Asking for

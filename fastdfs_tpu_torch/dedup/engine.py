@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex, MinHashLSHIndex
-from fastdfs_tpu_torch.ops import bucket_lens, gear_cdc
+from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, bucket_lens, chunk_table,
+                                   gear_cdc, pack_chunk_table, resolve_device)
 from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda)
@@ -99,26 +100,6 @@ def _bucket_len(n: int, min_size: int, max_size: int) -> int:
     """The reference engine's bucket rule for one length (``bucket_lens``,
     which shapes the plain twins' tiles)."""
     return int(bucket_lens(np.array([n]), min_size, max_size)[0])
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """The engine's device; asking for CUDA where there is none raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but CUDA is not available; "
-                "pass device='cpu' to run the plain PyTorch path")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
-# Zero bytes kept past a segment's end in its staging buffer, so that no
-# kernel load near the last chunk leaves the allocation.
-SEGMENT_SLACK = 64
 
 
 class _Staging:
@@ -200,12 +181,7 @@ class DedupEngine:
         host = st.seg.numpy()
         host[:seg_len] = np.frombuffer(data, dtype=np.uint8, count=seg_len)
         host[seg_len:seg_len + SEGMENT_SLACK] = 0
-        table = st.table.numpy()
-        table[:n] = offsets
-        pairs = table[n:2 * n].view(np.int32)
-        pairs[:n] = lens
-        # Longest first: a warp's SHA-1 lanes run similar chains.
-        pairs[n:] = np.argsort(-lens, kind="stable")
+        pack_chunk_table(st.table.numpy(), offsets, lens)
         seg = st.seg[:seg_len + SEGMENT_SLACK]
         tab = st.table[:2 * n]
         if self.device.type == "cuda":
@@ -213,9 +189,7 @@ class DedupEngine:
             tab = tab.to(self.device, non_blocking=True)
             st.uploaded = torch.cuda.Event()
             st.uploaded.record(torch.cuda.current_stream(self.device))
-        d_off = tab[:n]
-        pairs = tab[n:].view(torch.int32)
-        d_len, d_order = pairs[:n], pairs[n:]
+        d_off, d_len, d_order = chunk_table(tab, n)
         out = torch.empty((n, 5 + cfg.num_perms), dtype=torch.int32,
                           device=self.device)
         sha1_ragged_cuda(seg, d_off, d_len, d_order, out[:, :5],

@@ -21,6 +21,26 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 
+# Zero bytes kept past a segment's end in its staging buffer, so that no
+# kernel load near the last chunk leaves the allocation.
+SEGMENT_SLACK = 64
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """An entry point's device; asking for CUDA where there is none
+    raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but CUDA is not available; "
+                "pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
 
 def widen(x: torch.Tensor) -> torch.Tensor:
     """uint32 (or int32 bit pattern) tensor -> int64 in [0, 2**32)."""
@@ -102,6 +122,27 @@ def check_ragged(seg: torch.Tensor, offsets: torch.Tensor,
         raise ValueError(f"unsupported device {seg.device}")
     if not seg.is_contiguous():
         raise ValueError("seg must be contiguous")
+
+
+def pack_chunk_table(table: np.ndarray, offsets: np.ndarray,
+                     lens: np.ndarray) -> None:
+    """Lay a ragged chunk table into the first ``2 N`` entries of an int64
+    array, so that it goes to the card in one copy: the ``N`` offsets,
+    then the int32 lengths and the int32 longest-first order (a warp's
+    SHA-1 lanes then run similar chains).  ``chunk_table`` reads it."""
+    n = len(lens)
+    table[:n] = offsets
+    pairs = table[n:2 * n].view(np.int32)
+    pairs[:n] = lens
+    pairs[n:] = np.argsort(-lens, kind="stable")
+
+
+def chunk_table(tab: torch.Tensor, n: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int64 offsets, int32 lengths and int32 order of an ``n``-chunk
+    table that ``pack_chunk_table`` laid out, as views of ``tab``."""
+    pairs = tab[n:2 * n].view(torch.int32)
+    return tab[:n], pairs[:n], pairs[n:]
 
 
 def check_out(out: torch.Tensor, n: int, width: int,

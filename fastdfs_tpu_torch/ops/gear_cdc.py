@@ -12,7 +12,9 @@ The port of ``fastdfs_tpu/ops/gear_cdc.py``, in two halves:
 - **Device half** (plain PyTorch on the engine's device): ``gear_hashes``,
   ``gear_candidates`` and ``chunk_stream``, which serve
   ``DEDUP_FINGERPRINT`` (the sidecar chunks the segment itself).  These
-  are XLA in the reference, not a Pallas kernel.
+  are XLA in the reference, not a Pallas kernel.  ``chunk_stream`` is
+  ``upload_padded`` then ``device_cuts``; the client's fingerprint calls
+  the two itself so that its SHA-1 launch reads the same device buffer.
 
 The serial gear hash is ``h = (h << 1) + gear[b[i]]`` with a cut candidate
 wherever ``h & mask == 0``.  Because ``<< 1`` pushes a byte's contribution
@@ -289,6 +291,7 @@ def select_cuts_skipmin(
             break
     return cuts
 
+
 def chunk_stream(
     data: bytes,
     min_size: int = DEFAULT_MIN_SIZE,
@@ -315,14 +318,48 @@ def chunk_stream(
         raise ValueError(f"unknown cdc_policy {cdc_policy}")
     if not data:
         return []
+    host, dev = upload_padded(data, device)
+    return device_cuts(host, dev, len(data), min_size, avg_bits, max_size,
+                       cdc_policy, _k_override)
+
+
+def _cdc_len(n: int) -> int:
+    """The device pass's buffer length: the next power of two, >= 4 KiB."""
+    return 1 << max(12, (n - 1).bit_length())
+
+
+def upload_padded(data: bytes, device: str | torch.device, slack: int = 0
+                  ) -> tuple[np.ndarray, torch.Tensor]:
+    """``data`` copied once onto ``device``, zero past its end up to the
+    device pass's power-of-two length plus ``slack`` bytes.
+
+    ``slack`` lets a kernel that loads a little past the last chunk
+    (``ops.SEGMENT_SLACK``) share this buffer with the CDC pass even when
+    ``len(data)`` is itself a power of two.  Returns this thread's host
+    staging (``staging_buffer``, reused by its next call) and the device
+    buffer; on the CPU the two share memory.
+    """
     n = len(data)
-    padded = 1 << max(12, (n - 1).bit_length())  # >= 4 KiB, pow2
-    buf = staging_buffer(padded)
+    buf = staging_buffer(_cdc_len(n) + slack)
     buf[:n] = np.frombuffer(data, dtype=np.uint8)
     buf[n:] = 0
+    return buf, torch.from_numpy(buf).to(device)
+
+
+def device_cuts(host: np.ndarray, dev: torch.Tensor, n: int,
+                min_size: int = DEFAULT_MIN_SIZE,
+                avg_bits: int = DEFAULT_AVG_BITS,
+                max_size: int = DEFAULT_MAX_SIZE,
+                cdc_policy: int = CDC_POLICY_DEFAULT,
+                _k_override: int | None = None) -> list[int]:
+    """``chunk_stream``'s cuts of the ``n`` bytes that ``upload_padded``
+    staged as ``host`` and ``dev`` (``n >= 1``)."""
+    if cdc_policy not in (CDC_POLICY_DEFAULT, CDC_POLICY_SKIPMIN):
+        raise ValueError(f"unknown cdc_policy {cdc_policy}")
+    padded = _cdc_len(n)
+    dev = dev[:padded]
     k = _k_override if _k_override is not None else max(
         padded >> max(avg_bits - 2, 0), 256)
-    dev = torch.from_numpy(buf).to(device)
     idx = gear_candidates(dev, n, avg_bits, k).cpu().numpy()
     if idx[-1] >= padded:  # last slot unused => no overflow
         cand = idx[idx < padded]
@@ -333,7 +370,7 @@ def chunk_stream(
         mask = candidate_mask(_gear_hashes(dev[:n]), avg_bits)
         cand = np.flatnonzero(mask.cpu().numpy())
     if cdc_policy == CDC_POLICY_SKIPMIN:
-        return select_cuts_skipmin(buf[:n], cand, n, min_size, avg_bits,
+        return select_cuts_skipmin(host[:n], cand, n, min_size, avg_bits,
                                    max_size)
     return select_cuts(cand, n, min_size, max_size)
 

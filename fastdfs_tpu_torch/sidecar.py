@@ -60,9 +60,9 @@ import torch
 
 from fastdfs_tpu_torch.common.protocol import (HEADER_SIZE, StorageCmd,
                                                pack_header, unpack_header)
-from fastdfs_tpu_torch.dedup.engine import (SEGMENT_SLACK, DedupConfig,
-                                            DedupEngine)
+from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex
+from fastdfs_tpu_torch.ops import SEGMENT_SLACK
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import CDC_SPEC_VERSION
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes

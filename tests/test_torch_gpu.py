@@ -15,15 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from fastdfs_tpu_torch.dedup.engine import (SEGMENT_SLACK, DedupConfig,
-                                            DedupEngine)
-from fastdfs_tpu_torch.ops import minhash, sha1
+from fastdfs_tpu_torch.client import fingerprint_buffer
+from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
+from fastdfs_tpu_torch.ops import SEGMENT_SLACK, minhash, rs_code, sha1
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_np
+from fastdfs_tpu_torch.ops.streaming import stream_batches
 
 
 @pytest.fixture
@@ -173,3 +174,54 @@ def test_one_chunk_as_large_as_the_segment(cuda_device):
     sig = sketch_ragged_cuda(d_seg, d_off, d_len, None, d_ord)
     plain = minhash.sketch_ragged(d_seg[:len(seg)], d_off, d_len)
     assert torch.equal(sig.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 22, (1 << 22) - 17])
+def test_fingerprint_buffer_on_card_matches_cpu_route(cuda_device, n):
+    # 2^22 bytes: the device pass's power-of-two buffer has no room of
+    # its own past the payload, so the SHA-1 slack must come from the
+    # upload.
+    data = np.random.default_rng(n).integers(0, 256, n,
+                                             dtype=np.uint8).tobytes()
+    before = sha1_ragged_cuda.launches
+    got = fingerprint_buffer(data, device=cuda_device)
+    assert sha1_ragged_cuda.launches == before + 1
+    want = fingerprint_buffer(data, device="cpu")
+    assert [(f.length, f.digest) for f in got] == \
+        [(f.length, f.digest) for f in want]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,m", [(4, 2), (10, 4), (32, 8)])
+def test_gf_matmul_on_card(cuda_device, k, m):
+    shards = np.random.default_rng(k).integers(0, 256, (k, 100_003),
+                                               dtype=np.uint8)
+    pm = rs_code.parity_matrix(k, m)
+    want = rs_code.gf_matmul_np(pm, shards)
+    got = rs_code.gf_matmul(pm, shards, device=cuda_device)
+    assert isinstance(got, np.ndarray) and np.array_equal(got, want)
+    d = torch.from_numpy(shards).to(cuda_device)
+    parity = rs_code.rs_encode(d, m)
+    assert parity.device == d.device
+    assert np.array_equal(parity.cpu().numpy(), want)
+    back = rs_code.rs_reconstruct(torch.cat([d[m:], parity]),
+                                  list(range(m, k + m)), k, m)
+    assert torch.equal(back, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_stream_batches_through_the_sha1_kernel(cuda_device, depth):
+    rng = np.random.RandomState(depth)
+    batches = [_batch(rng, 256, 2048, [2048, 0, 1, 55, 56, 64])
+               for _ in range(5)]
+    got = list(stream_batches(iter(batches), sha1_batch_cuda, depth=depth,
+                              device=cuda_device))
+    assert len(got) == len(batches)
+    for (data, lens), words in zip(batches, got):
+        assert words.dtype == np.uint32
+        raw = sha1.digest_bytes(words)
+        for i in range(len(lens)):
+            assert raw[i * 20:(i + 1) * 20] == \
+                hashlib.sha1(data[i, :lens[i]].tobytes()).digest(), i
