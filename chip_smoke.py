@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke of fastdfs_tpu_torch: the dedup sidecar's fingerprint path.
+"""On-card smoke of fastdfs_tpu_torch: the dedup sidecar's fingerprint path
+and everything of the port around it.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -43,10 +44,20 @@ before the last line):
    RS(10,4) and RS(32,8) (the storage config's clamp), each parity equal
    to ``gf_matmul_np``, then rebuilt on the card from the last k of the
    k + m shards; the median ms of encode and rebuild beside the bound.
+8. ``parallel/`` with every virtual rank on the one card: the ingest step
+   over a (2, 2, 2) mesh and over one rank on two seeded 64 MB streams
+   (cut candidates planted at the block seam and the stream start), one
+   stream's ~6,400 chunks as 64 KiB rows and a 65,536-row index, checked
+   bit for bit against the whole streams' candidates, hashlib, the
+   ragged sketch kernel and NumPy's dense score; the engine's fan-out
+   over 2 and 4 ranks against ``fan_out=1``; the fingerprint step over 1
+   and 2 ranks against the kernels; ``entry()`` and
+   ``dryrun_multichip(8)``.  Times of both steps, the index query and the
+   stage-1 CDC beside their bounds.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-5 and 6 (each counted from 0 just before its run); launches made only to
-time or compare a kernel are not counted.  The second-to-last line is a
+5, 6 and 8 (each counted from 0 just before its run); launches made only
+to time or compare a kernel are not counted.  The second-to-last line is a
 JSON object with one entry per kernel; the last is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card the script exits non-zero and
 prints no result.
@@ -61,7 +72,6 @@ import shutil
 import socket
 import statistics
 import struct
-import subprocess
 import sys
 import tempfile
 import threading
@@ -72,22 +82,36 @@ import torch
 
 from fastdfs_tpu_torch.client import fingerprint_buffer
 from fastdfs_tpu_torch.common import protocol
-from fastdfs_tpu_torch.dedup.engine import DedupConfig
-from fastdfs_tpu_torch.ops import SEGMENT_SLACK, _build, minhash, rs_code, sha1
+from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
+from fastdfs_tpu_torch.entry import dryrun_multichip, entry
+from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, _build, minhash, rs_code,
+                                   sha1, widen)
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import (chunk_stream_np, device_cuts,
-                                            gear_candidates, upload_padded)
+from fastdfs_tpu_torch.ops.gear_cdc import (GEAR_TABLE, candidate_mask,
+                                            chunk_stream_np, device_cuts,
+                                            gear_candidates, gear_hashes,
+                                            gear_hashes_np, gear_values,
+                                            upload_padded)
 from fastdfs_tpu_torch.ops.streaming import stream_batches
+from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
+                                        make_fingerprint_step,
+                                        make_ingest_step, make_mesh)
+from fastdfs_tpu_torch.parallel.ingest_step import (HALO, block_candidates,
+                                                    index_best)
 from fastdfs_tpu_torch.sidecar import DedupSidecar
+from fastdfs_tpu_torch.tools.timing import card_line, median_ms, once_ms
 
 SEED = 20261016
 SEGMENT = 64 << 20                     # storage.conf dedup_segment_bytes
 PLAIN_ROW_TILE = 4096                  # plain twins' tiles on the card
-TIMED_LAUNCHES = 20
+ROW = 65536                            # DedupConfig.max_size: a chunk per row
+INDEX_ROWS = 65536                     # phase 8's near-dup index, 16 MB
+INDEXED = 4096                         # stream 0's chunks in that index
+RANKS = 8                              # phase 8's (2, 2, 2) mesh
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and
 # the 32-bit integer rate, 132 SMs x 64 results per clock (IMAD, IADD3,
@@ -146,40 +170,9 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip()
-
-
 def i64(t: torch.Tensor) -> np.ndarray:
     """uint32 tensor on any device -> int64 numpy with the same values."""
     return t.view(torch.int32).cpu().numpy().view(np.uint32).astype(np.int64)
-
-
-def median_ms(fn, n: int = TIMED_LAUNCHES) -> float:
-    fn()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def once_ms(fn):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def sha1_bound(lens: np.ndarray) -> tuple[float, str]:
@@ -787,7 +780,7 @@ def phase_rs(dev, card: str) -> None:
         survivors = torch.cat([d[m:], parity])
         check(torch.equal(rs_code.rs_reconstruct(survivors, present, k, m),
                           d), f"RS({k},{m}) rebuild != data")
-        enc_ms = median_ms(lambda: rs_code.rs_encode(d, m), n=10)
+        enc_ms = median_ms(lambda: rs_code.rs_encode(d, m), 10)
         dec_ms = median_ms(lambda: rs_code.rs_reconstruct(
             survivors, present, k, m), n=10)
         _, kernels = device_profile(lambda: rs_code.rs_encode(d, m))
@@ -800,6 +793,259 @@ def phase_rs(dev, card: str) -> None:
               f"{enc_ms:.4f} ms ({launches} device kernels; bound "
               f"{enc_bound:.4f} by {enc_by}), rebuild {dec_ms:.4f} ms "
               f"(bound {dec_bound:.4f} by {dec_by})  [{card}]")
+
+
+# Every kernel wrapper's launch counter, and which kernel each launches.
+SHA1_WRAPPERS = (sha1_ragged_cuda, sha1_batch_cuda)
+SKETCH_WRAPPERS = (sketch_ragged_cuda, survivor_ragged_cuda,
+                   survivor_segmin_cuda, minhash_batch_cuda)
+
+
+def counted(fn):
+    """``(fn(), launches)``: every counter set to 0 just before the call
+    and read just after it, as ``{wrapper name: launches}``."""
+    for f in SHA1_WRAPPERS + SKETCH_WRAPPERS:
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {f.__name__: f.launches
+                 for f in SHA1_WRAPPERS + SKETCH_WRAPPERS if f.launches}
+
+
+def plant_candidate(buf: np.ndarray, p: int, avg_bits: int) -> None:
+    """Set ``buf[p - 1]`` and ``buf[p]`` so that position ``p`` is a cut
+    candidate of the whole stream: the low ``avg_bits`` bits of the gear
+    hash at ``p`` depend only on its last ``avg_bits`` bytes."""
+    g = GEAR_TABLE.astype(np.int64)
+    rest = sum(int(g[buf[p - k]]) << k for k in range(2, avg_bits)
+               if p - k >= 0)
+    low = (g[:, None] + (g[None, :] << 1) + rest) & ((1 << avg_bits) - 1)
+    buf[p], buf[p - 1] = np.argwhere(low == 0)[0]
+
+
+def padded_rows(stream: np.ndarray, cuts: list[int], dp: int):
+    """Each chunk of ``stream`` in its own zero-padded ``ROW``-byte row,
+    and zero-length rows up to a multiple of ``dp``."""
+    n = len(cuts) + (-len(cuts)) % dp
+    rows = np.zeros((n, ROW), dtype=np.uint8)
+    lens = np.zeros(n, dtype=np.int32)
+    for i, (o, e) in enumerate(zip([0] + cuts[:-1], cuts)):
+        rows[i, :e - o] = stream[o:e]
+        lens[i] = e - o
+    return rows, lens
+
+
+def plain_signatures(dev, stream: torch.Tensor, cuts: list[int]) -> np.ndarray:
+    """The plain twin's signatures of a stream's chunks, on the card."""
+    ends = torch.tensor(cuts, dtype=torch.int64, device=dev)
+    lens = torch.diff(ends, prepend=ends.new_zeros(1))
+    sig = minhash.sketch_ragged(stream, ends - lens, lens.to(torch.int32),
+                                row_tile=PLAIN_ROW_TILE)
+    return sig.view(torch.int32).cpu().numpy().view(np.uint32)
+
+
+def check_ingest_step(dev, card: str, total: dict) -> None:
+    """The ingest step over a (2, 2, 2) mesh of virtual ranks and over one
+    rank, at full width: two 64 MB streams, one stream's chunks as padded
+    rows, a 65,536-row index."""
+    rng = np.random.default_rng(SEED + 5)
+    bits = DedupConfig().avg_bits
+    mesh8 = make_mesh(RANKS, devices=[dev] * RANKS)
+    mesh1 = make_mesh(1, devices=[dev])
+    dp, sp = mesh8.shape["dp"], mesh8.shape["sp"]
+    streams = rng.integers(0, 256, (2, SEGMENT), dtype=np.uint8)
+    # Candidates where the window straddles a block seam, and within the
+    # first window of each stream (zero halo values, not zero bytes).
+    seam = SEGMENT // sp
+    planted = [5, 30, seam + 1, seam + 5, seam + 30]
+    for stream in streams:
+        for p in planted:
+            plant_candidate(stream, p, bits)
+    cuts = [chunk_stream_np(stream) for stream in streams]
+    rows, lens = padded_rows(streams[0], cuts[0], dp)
+    n_real, n = len(cuts[0]), len(lens)
+
+    d_streams = torch.from_numpy(streams).to(dev)
+    sigs0 = plain_signatures(dev, d_streams[0], cuts[0])
+    chosen = rng.choice(n_real, INDEXED, replace=False)
+    index = np.concatenate([
+        sigs0[chosen], plain_signatures(dev, d_streams[1], cuts[1]),
+        rng.integers(0, 2**32, (INDEX_ROWS - INDEXED - len(cuts[1]), 64),
+                     dtype=np.uint32)])
+    index = index[rng.permutation(INDEX_ROWS)]
+    d_rows = torch.from_numpy(rows).to(dev)
+    d_lens = torch.from_numpy(lens).to(dev)
+    d_index = torch.from_numpy(index.view(np.int32)).to(dev)
+    print(f"  ingest step inputs: 2 seeded streams of {SEGMENT >> 20} MB "
+          f"(candidates planted at {planted}); {n_real} chunks of stream 0 "
+          f"in {n} rows of {ROW} B; an index of {INDEX_ROWS} signatures "
+          f"({INDEXED} of stream 0's chunks, {len(cuts[1])} of stream 1's)")
+
+    step8, step1 = make_ingest_step(mesh8), make_ingest_step(mesh1)
+    in8 = (d_streams.view(2, sp, seam), d_rows, d_lens, d_index)
+    in1 = (d_streams.view(2, 1, SEGMENT), d_rows, d_lens, d_index)
+    ranks, n8 = counted(lambda: step8.per_rank(*in8))
+    (cand1, dig1, sig1, best1), n1 = counted(lambda: step1(*in1))
+    for launches in (n8, n1):
+        for name, k in launches.items():
+            total[name] = total.get(name, 0) + k
+    check(n8 == {"sha1_batch_cuda": RANKS, "survivor_segmin_cuda": RANKS},
+          f"8-rank step launched {n8}")
+    check(n1 == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1},
+          f"1-rank step launched {n1}")
+    for r, out in enumerate(ranks):
+        for name, a, b in zip(("digests", "sigs", "best"), out[1:],
+                              ranks[0][1:]):
+            check(torch.equal(a, b), f"rank {r}'s {name} != rank 0's")
+    cand8, dig8, sig8, best8 = step8.assemble(ranks)
+
+    for b in range(2):
+        want = candidate_mask(widen(gear_hashes(d_streams[b])), bits)
+        check(bool(want[planted].all()), f"stream {b}: a planted position "
+              "is not a candidate")
+        for got, what in ((cand8, "8-rank"), (cand1, "1-rank")):
+            check(torch.equal(got[b].reshape(-1), want),
+                  f"stream {b}: {what} candidates != the whole stream's")
+    raw = sha1.digest_bytes(dig8)
+    spans = list(zip([0] + cuts[0][:-1], cuts[0])) + [(0, 0)] * (n - n_real)
+    for i, (o, e) in enumerate(spans):
+        check(raw[i * 20:(i + 1) * 20] == hashlib.sha1(
+            streams[0][o:e].tobytes()).digest(), f"row {i}: digest != hashlib")
+    check(np.array_equal(i64(dig1), i64(dig8)),
+          "1-rank digests != 8-rank digests")
+    offsets = [0] + cuts[0][:-1]
+    d_seg, d_off, d_len, d_ord = on_card(dev, streams[0].tobytes(), offsets,
+                                         np.diff(cuts[0], prepend=0))
+    ragged = sketch_ragged_cuda(d_seg, d_off, d_len, None, d_ord)
+    check(np.array_equal(i64(sig8)[:n_real], i64(ragged)),
+          "8-rank signatures != the ragged sketch kernel's")
+    check(np.array_equal(i64(sig1), i64(sig8)),
+          "1-rank signatures != 8-rank signatures")
+    best = best8.cpu().numpy()
+    check(bool((best[chosen] == 1.0).all()), "an indexed chunk scored below 1")
+    check(torch.equal(best1, best8), "1-rank best != 8-rank best")
+    sample = rng.choice(n, min(n, 256), replace=False)
+    q = i64(sig8)[sample]
+    idx = index.astype(np.int64)
+    dense = np.concatenate([
+        (q[j:j + 16, None, :] == idx[None]).mean(axis=2, dtype=np.float32)
+        .max(axis=1) for j in range(0, len(q), 16)])
+    check(np.array_equal(dense, best[sample]),
+          "best != NumPy's dense score on 256 sampled rows")
+    print(f"  8-rank (2, 2, 2) and 1-rank steps: candidates == the whole "
+          f"streams' (seams and planted positions included), digests == "
+          f"hashlib, signatures == the ragged kernel, best == 1.0 on the "
+          f"{INDEXED} indexed chunks and == NumPy on 256 rows; every rank's "
+          f"replicated outputs equal; launches {n8} and {n1} (every rank "
+          f"runs the body: each row is hashed sp x tp = "
+          f"{sp * mesh8.shape['tp']} times on the 8-rank mesh)")
+
+    ms8 = median_ms(lambda: step8(*in8), 3)
+    ms1 = median_ms(lambda: step1(*in1), 3)
+    m = INDEX_ROWS
+    q_ms = median_ms(lambda: index_best(sig8.view(torch.int32), d_index), 5)
+    q_bound = max((n + m) * 64 * 4 / HBM_BYTES_PER_S,
+                  2 * n * m * 64 / INT32_OPS_PER_S) * 1e3
+    halo = torch.zeros((2, HALO), dtype=torch.int64, device=dev)
+    cdc_ms = median_ms(lambda: block_candidates(gear_values(d_streams), halo,
+                                                bits), 5)
+    cdc_bound = max(4 * SEGMENT / HBM_BYTES_PER_S,
+                    2 * SEGMENT * CDC_OPS_PER_POSITION / INT32_OPS_PER_S) * 1e3
+    print(f"  ingest step, CUDA-event median of 3: 8 ranks on one card "
+          f"{ms8:.2f} ms, 1 rank {ms1:.2f} ms  [{card}]")
+    print(f"  index query ({n} x {m} x 64, tiled): {q_ms:.3f} ms, bound "
+          f"{q_bound:.3f} ms; stage-1 CDC of 2 x {SEGMENT >> 20} MB: "
+          f"{cdc_ms:.3f} ms, bound {cdc_bound:.4f} ms  [{card}]")
+
+
+def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
+                   total: dict) -> None:
+    """The engine's fan-out over 2 and 4 virtual ranks on phase 2's
+    segment, the fingerprint step over 1 and 2 ranks, ``entry()`` and
+    ``dryrun_multichip``."""
+    want = DedupEngine(DedupConfig(), device=dev).fingerprint(seg, cuts=cuts)
+    walls = {}
+    for k in (1, 2, 4):
+        eng = DedupEngine(DedupConfig(fan_out=k), device=dev,
+                          devices=[dev] * k)
+        got, launches = counted(lambda: eng.fingerprint(seg, cuts=cuts))
+        check(got[0] == want[0] and np.array_equal(got[1], want[1])
+              and np.array_equal(got[2], want[2]),
+              f"fan_out={k}: spans, digests or signatures != fan_out=1")
+        check(launches == {"sha1_ragged_cuda": k, "sketch_ragged_cuda": k},
+              f"fan_out={k} launched {launches}")
+        if k > 1:
+            for name, c in launches.items():
+                total[name] = total.get(name, 0) + c
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            eng.fingerprint(seg, cuts=cuts)
+            times.append((time.monotonic() - t0) * 1e3)
+        walls[k] = statistics.median(times)
+    print(f"  engine fan_out 2 and 4 on one card == fan_out 1, k launches of "
+          f"each kernel; fingerprint wall, median of 3 (ms): "
+          + ", ".join(f"fan_out {k} {w:.1f}" for k, w in walls.items())
+          + f"  [{card}]")
+
+    rows, lens = padded_rows(np.frombuffer(seg, np.uint8), cuts[:256], 2)
+    d_rows = torch.from_numpy(rows).to(dev)
+    d_lens = torch.from_numpy(lens).to(dev)
+    want_d = i64(sha1_batch_cuda(d_rows, d_lens))
+    want_s = i64(minhash_batch_cuda(d_rows, d_lens))
+    for k in (1, 2):
+        step = make_fingerprint_step(fingerprint_mesh(k, devices=[dev] * k))
+        (d, s), launches = counted(lambda: step(d_rows, d_lens))
+        check(np.array_equal(i64(d), want_d) and np.array_equal(i64(s), want_s),
+              f"{k}-rank fingerprint step != the kernels called directly")
+        check(launches == {"sha1_batch_cuda": k, "minhash_batch_cuda": k},
+              f"{k}-rank fingerprint step launched {launches}")
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+    print(f"  fingerprint step over 1 and 2 ranks on {len(lens)} x {ROW} "
+          f"rows == the kernels called directly; one launch of each per rank")
+
+    fn, (chunks, lengths) = entry(dev)
+    out, launches = counted(lambda: fn(chunks, lengths))
+    check(launches == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1},
+          f"entry() launched {launches}")
+    raw = sha1.digest_bytes(out["sha1"])
+    check(all(raw[i * 20:(i + 1) * 20] == hashlib.sha1(row.tobytes()).digest()
+              for i, row in enumerate(chunks)), "entry() digests != hashlib")
+    plain = minhash.minhash_batch(torch.from_numpy(chunks).to(dev),
+                                  torch.from_numpy(lengths).to(dev))
+    check(np.array_equal(i64(out["minhash"]), i64(plain)),
+          "entry() signatures != the plain twin")
+    mask = (1 << DedupConfig().avg_bits) - 1
+    want_c = (gear_hashes_np(chunks.reshape(-1)) & mask) == 0
+    check(np.array_equal(out["cut_candidates"].cpu().numpy(), want_c)
+          and int(out["n_candidates"]) == int(want_c.sum()),
+          "entry() candidates != the host referee")
+    (_, launches2) = counted(lambda: dryrun_multichip(RANKS,
+                                                      devices=[dev] * RANKS))
+    check(launches2 == {"sha1_batch_cuda": RANKS,
+                        "survivor_segmin_cuda": RANKS},
+          f"dryrun_multichip launched {launches2}")
+    for name, c in list(launches.items()) + list(launches2.items()):
+        total[name] = total.get(name, 0) + c
+    print(f"  entry() on the card: digests == hashlib, signatures == plain "
+          f"twin, {int(out['n_candidates'])} candidates == host referee; "
+          f"dryrun_multichip({RANKS}, devices=[{dev}] * {RANKS}) passed")
+
+
+def phase_parallel(dev, card: str, seg: bytes, cuts: list[int]
+                   ) -> tuple[int, int]:
+    """Phase 8; returns the SHA-1 and sketch launches of its main-path
+    runs (each counted from 0 just before it)."""
+    print(f"phase 8: parallel/, the engine's fan-out and the entry on the "
+          f"card; every virtual rank sits on {dev}, so no time below says "
+          f"anything about scaling across cards")
+    total: dict[str, int] = {}
+    check_ingest_step(dev, card, total)
+    check_fan_outs(dev, card, seg, cuts, total)
+    print(f"  phase 8 launches by wrapper: {total}")
+    return (sum(total.get(f.__name__, 0) for f in SHA1_WRAPPERS),
+            sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS))
 
 
 def main() -> int:
@@ -838,9 +1084,13 @@ def main() -> int:
     marks.append(time.monotonic())
     phase_rs(dev, card)
     marks.append(time.monotonic())
+    sha1_n, sketch_n = phase_parallel(dev, card, seg, cuts)
+    rec_sha1.launches += sha1_n
+    rec_sketch.launches += sketch_n
+    marks.append(time.monotonic())
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-7: " + ", ".join(
+          f"(phases 2-8: " + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)
     print(json.dumps({"kernels": [rec_sha1.json(), rec_sketch.json()]}))

@@ -16,6 +16,12 @@ device ``_fingerprint_segment`` launches the two hand-written kernels
 take their plain twins, which pad the chunks into ``(row_tile, bucket)``
 tiles.  The file-level MinHash signature is the element-wise min over its
 chunks' signatures.
+
+With ``fan_out = k`` the segment's chunk table splits into ``k``
+contiguous runs balanced by bytes, one per device (the counterpart of the
+reference's row sharding over ``parallel.make_fingerprint_step``): each
+device gets its run's byte range plus ``SEGMENT_SLACK`` and its run's
+table, rebased and ordered longest first, and one launch of each kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
                                            perm_tensors, perm_words,
                                            signature_tiles, sketch_ragged)
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
+from fastdfs_tpu_torch.parallel.mesh import cuda_devices
 
 
 @dataclass(frozen=True)
@@ -62,7 +69,10 @@ class DedupConfig:
     # policies are distinct content-address namespaces (the sidecar
     # discards snapshots on mismatch, same as a spec bump).
     cdc_policy: int = gear_cdc.CDC_POLICY_DEFAULT
-    # Multi-GPU fan-out is not ported yet: None and 1 mean one device.
+    # Fingerprint fan-out: each segment's chunks split into this many
+    # contiguous runs, balanced by bytes, one run per device, one launch of
+    # each kernel per run.  None = auto: every visible card on cuda, 1 on
+    # the CPU.  row_tile must divide by it.
     fan_out: int | None = None
 
 
@@ -102,19 +112,31 @@ def _bucket_len(n: int, min_size: int, max_size: int) -> int:
     return int(bucket_lens(np.array([n]), min_size, max_size)[0])
 
 
+def _runs(offsets: np.ndarray, lens: np.ndarray, k: int) -> list[tuple[int, int]]:
+    """``k`` contiguous runs ``[a, b)`` of chunk indices, balanced by bytes:
+    run ``j`` ends after the last chunk that ends by ``j / k`` of the
+    segment.  A run may be empty."""
+    ends = offsets + lens
+    total = int(ends[-1])
+    bounds = np.searchsorted(ends, [total * j // k for j in range(1, k)],
+                             side="right")
+    edges = [0, *bounds.tolist(), len(lens)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
 class _Staging:
     """This thread's host staging for one segment: its bytes (plus
-    SEGMENT_SLACK) and its chunk table (offsets, then lengths and the
-    longest-first order as int32 pairs), pinned on a CUDA engine and grown
-    to the largest segment seen, and the event recorded after the last
-    upload from it."""
+    SEGMENT_SLACK) and its chunk table (each run's offsets, then its
+    lengths and longest-first order as int32 pairs), pinned on a CUDA
+    engine and grown to the largest segment seen, and the events recorded
+    after the last uploads from it, one per device."""
 
     __slots__ = ("seg", "table", "uploaded")
 
     def __init__(self) -> None:
         self.seg = torch.empty(0, dtype=torch.uint8)
         self.table = torch.empty(0, dtype=torch.int64)
-        self.uploaded: torch.cuda.Event | None = None
+        self.uploaded: list[torch.cuda.Event] = []
 
 
 class DedupEngine:
@@ -122,23 +144,23 @@ class DedupEngine:
 
     One engine per storage process.  Compute (CDC/SHA-1/MinHash) runs on
     ``device`` (``cuda`` unless the caller passes ``cpu``); index mutation
-    stays on the host.
+    stays on the host.  The fingerprint kernels run on ``devices``: the
+    first ``fan_out`` cards on cuda, ``fan_out`` ranks of the CPU, or a
+    list the caller gives (one device may appear more than once).
     """
 
     def __init__(self, config: DedupConfig | None = None,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 devices: list | None = None) -> None:
         self.config = config or DedupConfig()
         if self.config.cdc_policy not in (gear_cdc.CDC_POLICY_DEFAULT,
                                           gear_cdc.CDC_POLICY_SKIPMIN):
             raise ValueError(f"unknown cdc_policy {self.config.cdc_policy}")
-        if self.config.fan_out not in (None, 1):
-            raise NotImplementedError(
-                f"fan_out={self.config.fan_out}: multi-GPU fan-out is not "
-                "ported yet (ROADMAP.md, queue 1: parallel/ fan-out)")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.config.use_pallas is False:
             raise ValueError("use_pallas=False: the port has no plain path "
                              "on CUDA; use device='cpu' for the plain twins")
+        self.devices = self._fan_devices(devices)
         self.exact = ExactDigestIndex()
         self.near = MinHashLSHIndex(self.config.num_perms, self.config.lsh_bands)
         # The sketch kernel is specialized to k = 5 and 64 permutations.
@@ -146,20 +168,42 @@ class DedupEngine:
         # stage 4 as the plain twin; another shingle width runs the plain
         # twin throughout, on the same device.
         cfg = self.config
-        if cfg.shingle == KERNEL_SHINGLE and cfg.num_perms == KERNEL_PERMS:
-            self._perm_words = perm_words(cfg.num_perms, self.device)
-        else:
-            self._perms = perm_tensors(cfg.num_perms, self.device)
+        self._fused = (cfg.shingle == KERNEL_SHINGLE
+                       and cfg.num_perms == KERNEL_PERMS)
+        make = perm_words if self._fused else perm_tensors
+        self._consts = {dev: make(cfg.num_perms, dev)
+                        for dev in set(self.devices)}
         self._staging = threading.local()
 
+    def _fan_devices(self, devices) -> list[torch.device]:
+        fan = self.config.fan_out
+        if devices is not None:
+            devs = [resolve_device(d) for d in devices]
+            if len(devs) != (fan or len(devs)) or any(
+                    d.type != self.device.type for d in devs):
+                raise ValueError(f"devices {devices} are not fan_out {fan} "
+                                 f"devices of type {self.device.type}")
+        elif self.device.type == "cpu":
+            devs = [self.device] * (fan or 1)
+        elif fan == 1:
+            devs = [self.device]
+        else:
+            devs = cuda_devices(fan)     # None: every visible card
+        if not devs:
+            raise ValueError(f"fan_out {fan}: no device")
+        if len(devs) > 1 and self.config.row_tile % len(devs):
+            raise ValueError(f"row_tile {self.config.row_tile} must divide "
+                             f"by fan_out {len(devs)}")
+        return devs
+
     def _stage(self, seg_len: int, n: int) -> _Staging:
-        """This thread's staging, after its previous upload landed, grown
+        """This thread's staging, after its previous uploads landed, grown
         to hold ``seg_len`` bytes plus the slack and an ``n``-chunk table."""
         st = getattr(self._staging, "st", None)
         if st is None:
             st = self._staging.st = _Staging()
-        elif st.uploaded is not None:
-            st.uploaded.synchronize()
+        for ev in st.uploaded:
+            ev.synchronize()
         pinned = self.device.type == "cuda"
         if st.seg.shape[0] < seg_len + SEGMENT_SLACK:
             st.seg = torch.empty(seg_len + SEGMENT_SLACK, dtype=torch.uint8,
@@ -171,43 +215,61 @@ class DedupEngine:
 
     def _fingerprint_segment(self, data, offsets: np.ndarray,
                              lens: np.ndarray) -> np.ndarray:
-        """One upload of the segment and its chunk table, one SHA-1 launch,
-        one sketch launch, one copy back: uint32 (N, 5 + P), digests then
-        signatures."""
-        cfg = self.config
+        """One upload of each run's bytes and chunk table to its device,
+        one SHA-1 launch and one sketch launch per run, one copy back per
+        run, in order: uint32 (N, 5 + P), digests then signatures."""
         n = len(lens)
         seg_len = int(offsets[-1] + lens[-1])
         st = self._stage(seg_len, n)
         host = st.seg.numpy()
         host[:seg_len] = np.frombuffer(data, dtype=np.uint8, count=seg_len)
         host[seg_len:seg_len + SEGMENT_SLACK] = 0
-        pack_chunk_table(st.table.numpy(), offsets, lens)
-        seg = st.seg[:seg_len + SEGMENT_SLACK]
-        tab = st.table[:2 * n]
-        if self.device.type == "cuda":
-            seg = seg.to(self.device, non_blocking=True)
-            tab = tab.to(self.device, non_blocking=True)
-            st.uploaded = torch.cuda.Event()
-            st.uploaded.record(torch.cuda.current_stream(self.device))
-        d_off, d_len, d_order = chunk_table(tab, n)
-        out = torch.empty((n, 5 + cfg.num_perms), dtype=torch.int32,
-                          device=self.device)
+        table = st.table.numpy()
+        outs = []
+        st.uploaded = []
+        for dev, (a, b) in zip(self.devices,
+                               _runs(offsets, lens, len(self.devices))):
+            if a == b:
+                continue
+            # Bytes past the run's end are the next run's or the slack's
+            # zeros; the kernels mask everything past a chunk's end.
+            lo = int(offsets[a])
+            hi = int(offsets[b - 1] + lens[b - 1])
+            pack_chunk_table(table[2 * a:2 * b], offsets[a:b] - lo, lens[a:b])
+            seg = st.seg[lo:hi + SEGMENT_SLACK]
+            tab = st.table[2 * a:2 * b]
+            if dev.type == "cuda":
+                seg = seg.to(dev, non_blocking=True)
+                tab = tab.to(dev, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                st.uploaded.append(ev)
+            outs.append(self._fingerprint_run(dev, seg, *chunk_table(tab, b - a)))
+        return np.concatenate([o.cpu().numpy() for o in outs]).view(np.uint32)
+
+    def _fingerprint_run(self, dev, seg, d_off, d_len, d_order
+                         ) -> torch.Tensor:
+        """One launch of each kernel over one run: int32 (n, 5 + P)."""
+        cfg = self.config
+        consts = self._consts[dev]
+        out = torch.empty((d_off.shape[0], 5 + cfg.num_perms),
+                          dtype=torch.int32, device=dev)
         sha1_ragged_cuda(seg, d_off, d_len, d_order, out[:, :5],
                          cfg.row_tile)
-        if cfg.shingle == KERNEL_SHINGLE and cfg.num_perms == KERNEL_PERMS:
-            sketch_ragged_cuda(seg, d_off, d_len, self._perm_words, d_order,
+        if self._fused:
+            sketch_ragged_cuda(seg, d_off, d_len, consts, d_order,
                                out[:, 5:], cfg.row_tile)
         else:
             if cfg.shingle == KERNEL_SHINGLE:
                 sig = signature_tiles(
                     survivor_ragged_cuda(seg, d_off, d_len, d_order,
                                          cfg.row_tile),
-                    cfg.num_perms, self._perms, cfg.row_tile)
+                    cfg.num_perms, consts, cfg.row_tile)
             else:
                 sig = sketch_ragged(seg, d_off, d_len, cfg.num_perms,
-                                    cfg.shingle, self._perms, cfg.row_tile)
+                                    cfg.shingle, consts, cfg.row_tile)
             out[:, 5:] = sig.view(torch.int32)
-        return out.cpu().numpy().view(np.uint32)
+        return out
 
     # -- pure compute ------------------------------------------------------
 

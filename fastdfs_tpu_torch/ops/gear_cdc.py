@@ -129,7 +129,7 @@ def gear_hashes_ref(data: bytes | np.ndarray) -> np.ndarray:
 
 # -- device half (plain PyTorch) ---------------------------------------------
 
-def _inline_gear(data: torch.Tensor) -> torch.Tensor:
+def gear_values(data: torch.Tensor) -> torch.Tensor:
     """Gear table values as inline fmix32 arithmetic (no gather): uint8
     -> int64 in [0, 2**32)."""
     x = data.to(torch.int64) + 1
@@ -140,20 +140,29 @@ def _inline_gear(data: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def _gear_hashes(data: torch.Tensor) -> torch.Tensor:
-    # Prefix doubling: S_w[i] = sum_{k<w} g[i-k] << k satisfies
-    # S_2w[i] = S_w[i] + (S_w[i-w] << w), so the 32-term window needs
-    # log2(32) = 5 shifted adds, not 31.
-    h = _inline_gear(data)
-    n = h.shape[0]
+def gear_window(g: torch.Tensor) -> torch.Tensor:
+    """Windowed gear hashes of int64 gear values ``g`` along the last
+    axis, with zeros before the first value: int64 in [0, 2**32).
+
+    Prefix doubling: S_w[i] = sum_{k<w} g[i-k] << k satisfies
+    S_2w[i] = S_w[i] + (S_w[i-w] << w), so the 32-term window needs
+    log2(32) = 5 shifted adds, not 31.  The sequence-parallel ingest step
+    passes a block's values with its predecessor's trailing 31 in front.
+    """
+    h = g
+    n = h.shape[-1]
     w = 1
     while w < WINDOW:
         shifted = torch.zeros_like(h)
         if w < n:
-            shifted[w:] = h[:-w]
+            shifted[..., w:] = h[..., :-w]
         h = (h + (shifted << w)) & MASK32
         w <<= 1
     return h
+
+
+def _gear_hashes(data: torch.Tensor) -> torch.Tensor:
+    return gear_window(gear_values(data))
 
 
 def gear_hashes(data: torch.Tensor) -> torch.Tensor:

@@ -48,13 +48,16 @@ def _perm_constants(num_perms: int) -> tuple[np.ndarray, np.ndarray]:
     return a, b
 
 
-def perm_tensors(num_perms: int, device: str | torch.device
+def perm_tensors(num_perms: int, device: str | torch.device,
+                 lanes: slice = slice(None)
                  ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Stage 4's permutation constants on ``device``: ``a`` as its
-    ``split16`` halves and ``b``, each (P, 1) int64.  A caller that signs
-    many batches builds them once (``DedupEngine`` does): a copy from host
-    memory per call would also stall the host behind the device's queue."""
-    a, b = _perm_constants(num_perms)
+    ``split16`` halves and ``b``, each (P, 1) int64, or only the
+    permutations in ``lanes`` (a tensor-parallel rank's share).  A caller
+    that signs many batches builds them once (``DedupEngine`` does): a
+    copy from host memory per call would also stall the host behind the
+    device's queue."""
+    a, b = (c[lanes] for c in _perm_constants(num_perms))
     av = torch.as_tensor(a.astype(np.int64), device=device)[:, None]
     bv = torch.as_tensor(b.astype(np.int64), device=device)[:, None]
     return split16(av), bv

@@ -1,0 +1,312 @@
+"""The distributed ingest step and the fingerprint fan-out, over a ``Mesh``.
+
+The port of ``fastdfs_tpu/parallel/ingest_step.py``.  The reference runs
+one jitted ``shard_map``; here every rank of the mesh runs the same body
+on its shard, inside one process, and the collectives of
+``parallel.collectives`` join them.  The stages of ``make_ingest_step``:
+
+1. **CDC, sequence-parallel (sp)**: each rank holds one contiguous block
+   of every stream.  The gear hash's 32-byte window straddles block
+   seams, so each rank sends the gear values of its trailing 31 bytes to
+   the next rank along ``sp`` (``ppermute``); the first block's halo is
+   zero values (not zero bytes: byte 0 has gear value ``fmix32(1)``).
+2. **SHA-1, data-parallel (dp)**: rows shard over ``dp``; each rank runs
+   the SHA-1 kernel (``sha1_batch_cuda``) on its rows, then the digests
+   are all-gathered along ``dp``.
+3. **MinHash, tensor-parallel (tp)**: each rank runs MinHash stages 1-3
+   through the sketch kernel (``survivor_segmin_cuda``) and stage 4 for
+   its ``P / tp`` permutations (plain ``signature_tiles``); signatures
+   are all-gathered along ``tp``, then along ``dp``.  With ``tp == 1``
+   and 64 permutations the fused kernel (``minhash_batch_cuda``) signs
+   the rows whole.
+4. **Index query (dp + pmax)**: the signature index is row-sharded over
+   ``dp``; each rank scores the gathered signatures against its shard in
+   tiles and the best similarity is reduced with ``pmax``.
+
+Every rank runs the whole body, as ``shard_map`` does: ranks that differ
+only in ``sp`` or ``tp`` hash the same rows (stages 2-3 run ``sp * tp``
+times per row).  ``make_fingerprint_step`` is the fan-out with no
+collectives: rows shard over a 1-D ``dp`` mesh, each rank runs both
+kernels on its rows.
+
+On CPU ranks every kernel wrapper takes its plain twin; on CUDA ranks it
+launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
+                                                minhash_batch_cuda,
+                                                survivor_segmin_cuda)
+from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
+from fastdfs_tpu_torch.ops.gear_cdc import WINDOW, gear_values, gear_window
+from fastdfs_tpu_torch.ops.minhash import perm_tensors, signature_tiles
+from fastdfs_tpu_torch.parallel.collectives import all_gather, pmax, ppermute
+from fastdfs_tpu_torch.parallel.mesh import Mesh
+
+HALO = WINDOW - 1
+
+# (query, index row) pairs the index query scores at once: a bool
+# (pairs, P) comparison, 256 MB at P = 64, where the reference
+# materialises all N x M_loc x P at once.
+QUERY_PAIRS = 1 << 22
+
+
+_NUMPY = {torch.uint8: np.uint8, torch.int32: np.int32}
+
+
+def _tensor(x, dtype: torch.dtype) -> torch.Tensor:
+    """An array or tensor as a tensor of ``dtype``: uint8 bytes, int32
+    lengths, or uint32 words carried as their int32 bit patterns."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.uint32:
+            x = x.view(torch.int32)
+        if x.dtype != dtype:
+            raise ValueError(f"expected {dtype}, got {x.dtype}")
+        return x
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=_NUMPY[dtype]))
+
+
+def _shard(mesh: Mesh, x: torch.Tensor, spec: tuple[str | None, ...]
+           ) -> list[torch.Tensor]:
+    """``x`` split as a ``PartitionSpec`` splits it: dimension ``d`` into
+    ``mesh.shape[spec[d]]`` equal blocks (whole where ``spec[d]`` is
+    None), each rank's block on its device.  Ranks that share a device
+    and a block share one tensor."""
+    placed: dict = {}
+    out = []
+    for r in range(mesh.size):
+        coords = mesh.coords(r)
+        idx = []
+        for d, axis in enumerate(spec):
+            if axis is None:
+                idx.append(slice(None))
+                continue
+            k = mesh.shape[axis]
+            if x.shape[d] % k:
+                raise ValueError(f"dimension {d} of shape {tuple(x.shape)} "
+                                 f"does not divide by {axis} = {k}")
+            step = x.shape[d] // k
+            idx.append(slice(coords[axis] * step, (coords[axis] + 1) * step))
+        dev = mesh.device(r)
+        key = (dev, tuple((s.start, s.stop) for s in idx))
+        if key not in placed:
+            placed[key] = x[tuple(idx)].to(dev, non_blocking=True)
+        out.append(placed[key])
+    return out
+
+
+def _rank_perms(mesh: Mesh, num_perms: int, tp: int) -> list:
+    """Each rank's stage-4 constants: the permutations of its ``tp``
+    index, on its device (one copy per device and index)."""
+    p_local = num_perms // tp
+    built: dict = {}
+    out = []
+    for r in range(mesh.size):
+        t = mesh.coords(r).get("tp", 0)
+        key = (mesh.device(r), t)
+        if key not in built:
+            built[key] = perm_tensors(num_perms, mesh.device(r),
+                                      slice(t * p_local, (t + 1) * p_local))
+        out.append(built[key])
+    return out
+
+
+def _sign_rows(rows: torch.Tensor, lens: torch.Tensor, shingle: int,
+               perms) -> torch.Tensor:
+    """int32 bits of the MinHash signatures of padded rows: the fused
+    kernel when ``perms`` is None (all 64 permutations, k = 5), else
+    kernel stages 1-3 and the plain stage 4 over ``perms``."""
+    if perms is None:
+        return minhash_batch_cuda(rows, lens).view(torch.int32)
+    z = survivor_segmin_cuda(rows, lens, shingle)
+    return signature_tiles(z, perms[1].shape[0], perms).view(torch.int32)
+
+
+def block_candidates(g: torch.Tensor, halo: torch.Tensor,
+                     avg_bits: int) -> torch.Tensor:
+    """Cut candidates of one block: int64 gear values ``g`` (B, L) and the
+    gear values of the 31 bytes before it ``halo`` (B, 31) -> bool (B, L),
+    equal to the whole stream's ``candidate_mask`` at these positions."""
+    h = gear_window(torch.cat([halo, g], dim=1))[:, HALO:]
+    return (h & ((1 << avg_bits) - 1)) == 0
+
+
+def index_best(sigs: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Best similarity of each query against an index shard: int32 bits
+    ``sigs`` (N, P) and ``index`` (M, P) -> float32 (N,), the largest
+    fraction of equal lanes, 0.0 for an empty shard.  Scored in tiles of
+    ``QUERY_PAIRS`` pairs; ``k / P`` is the same float32 as the
+    reference's mean of ``k`` ones."""
+    n, p = sigs.shape
+    m = index.shape[0]
+    best = torch.zeros(n, dtype=torch.int64, device=sigs.device)
+    tm = max(1, min(m, 4096))
+    tn = max(1, QUERY_PAIRS // tm)
+    for n0 in range(0, n, tn):
+        q = sigs[n0:n0 + tn, None, :]
+        for m0 in range(0, m, tm):
+            eq = q == index[None, m0:m0 + tm, :]
+            best[n0:n0 + tn] = torch.maximum(best[n0:n0 + tn],
+                                             eq.sum(dim=2).amax(dim=1))
+    return best.to(torch.float32) / p
+
+
+class IngestStep:
+    """The distributed ingest step for one mesh (``make_ingest_step``).
+
+    ``step(stream, chunk_batch, chunk_lens, index_sigs)`` takes
+
+    - ``stream``: uint8 ``(B, sp, block_len)``: B byte streams, each split
+      into ``sp`` contiguous blocks;
+    - ``chunk_batch``: uint8 ``(N, L)`` rows zero past their int32
+      ``chunk_lens`` ``(N,)``;
+    - ``index_sigs``: uint32 ``(M, num_perms)``, the near-dup index rows
+      (M across dp);
+
+    as arrays or tensors on any device, and returns ``(cand (B, sp,
+    block_len) bool, digests (N, 5) uint32, sigs (N, num_perms) uint32,
+    best (N,) float32)`` on rank 0's device.  ``B``, ``N`` and ``M`` must
+    divide by dp.  ``per_rank`` returns every rank's own outputs and
+    ``assemble`` puts them together as the step does.
+    """
+
+    def __init__(self, mesh: Mesh, num_perms: int = 64, avg_bits: int = 13,
+                 shingle: int = 5) -> None:
+        tp = mesh.shape["tp"]
+        if num_perms % tp:
+            raise ValueError(f"num_perms {num_perms} must divide by tp {tp}")
+        self.mesh = mesh
+        self.num_perms = num_perms
+        self.avg_bits = avg_bits
+        self.shingle = shingle
+        fused = (tp == 1 and num_perms == KERNEL_PERMS
+                 and shingle == KERNEL_SHINGLE)
+        self._perms = ([None] * mesh.size if fused
+                       else _rank_perms(mesh, num_perms, tp))
+
+    def per_rank(self, stream, chunk_batch, chunk_lens, index_sigs
+                 ) -> list[tuple[torch.Tensor, ...]]:
+        """Each rank's ``(cand (B/dp, 1, block_len), digests, sigs, best)``,
+        on its device; digests and sigs as int32 bits."""
+        mesh = self.mesh
+        sp = mesh.shape["sp"]
+        stream = _tensor(stream, torch.uint8)
+        if stream.ndim != 3 or stream.shape[1] != sp:
+            raise ValueError(f"stream must be (B, sp={sp}, block_len), got "
+                             f"{tuple(stream.shape)}")
+        if sp > 1 and stream.shape[2] < HALO:
+            raise ValueError(f"blocks of {stream.shape[2]} bytes are shorter "
+                             f"than the {HALO}-byte halo")
+        blocks = _shard(mesh, stream, ("dp", "sp", None))
+        rows = _shard(mesh, _tensor(chunk_batch, torch.uint8), ("dp", None))
+        lens = _shard(mesh, _tensor(chunk_lens, torch.int32), ("dp",))
+        index = _shard(mesh, _tensor(index_sigs, torch.int32), ("dp", None))
+        ranks = range(mesh.size)
+
+        # Stage 1: sequence-parallel CDC with the ring halo exchange.
+        g = [gear_values(b[:, 0, :]) for b in blocks]
+        prev = ppermute(mesh, [x[:, -HALO:] for x in g], "sp",
+                        [(i, (i + 1) % sp) for i in range(sp)])
+        cand = []
+        for r in ranks:
+            halo = (prev[r] if mesh.coords(r)["sp"] else
+                    torch.zeros((g[r].shape[0], HALO), dtype=torch.int64,
+                                device=g[r].device))
+            cand.append(block_candidates(g[r], halo, self.avg_bits)[:, None])
+
+        # Stage 2: data-parallel SHA-1 and the digest all-gather.
+        digests = all_gather(mesh, [sha1_batch_cuda(rows[r], lens[r])
+                                    .view(torch.int32) for r in ranks],
+                             "dp", 0)
+
+        # Stage 3: tensor-parallel MinHash, gathered on tp, then on dp.
+        sigs = [_sign_rows(rows[r], lens[r], self.shingle, self._perms[r])
+                for r in ranks]
+        sigs = all_gather(mesh, all_gather(mesh, sigs, "tp", 1), "dp", 0)
+
+        # Stage 4: dp-sharded index query and the global max.
+        best = pmax(mesh, [index_best(sigs[r], index[r]) for r in ranks],
+                    "dp")
+        return list(zip(cand, digests, sigs, best))
+
+    def __call__(self, stream, chunk_batch, chunk_lens, index_sigs):
+        return self.assemble(self.per_rank(stream, chunk_batch, chunk_lens,
+                                           index_sigs))
+
+    def assemble(self, outs: list[tuple[torch.Tensor, ...]]):
+        """``per_rank``'s outputs as the step returns them: ``cand`` put
+        together from the (dp, sp) ranks, the replicated outputs taken
+        from rank 0."""
+        mesh = self.mesh
+        dev = mesh.device(0)
+        b_loc, _, blk = outs[0][0].shape
+        cand = torch.empty((b_loc * mesh.shape["dp"], mesh.shape["sp"], blk),
+                           dtype=torch.bool, device=dev)
+        for r, out in enumerate(outs):
+            c = mesh.coords(r)
+            if c["tp"] == 0:
+                d, s = c["dp"], c["sp"]
+                cand[d * b_loc:(d + 1) * b_loc, s:s + 1] = out[0].to(dev)
+        _, digests, sigs, best = outs[0]
+        return (cand, digests.view(torch.uint32), sigs.view(torch.uint32),
+                best)
+
+
+def make_ingest_step(mesh: Mesh, num_perms: int = 64, avg_bits: int = 13,
+                     shingle: int = 5) -> IngestStep:
+    """The distributed ingest step for ``mesh`` (see ``IngestStep``)."""
+    return IngestStep(mesh, num_perms, avg_bits, shingle)
+
+
+def distributed_ingest_step(mesh: Mesh, stream, chunk_batch, chunk_lens,
+                            index_sigs, num_perms: int = 64,
+                            avg_bits: int = 13, shingle: int = 5):
+    """Build the step for ``mesh`` and run it once."""
+    return make_ingest_step(mesh, num_perms, avg_bits, shingle)(
+        stream, chunk_batch, chunk_lens, index_sigs)
+
+
+def make_fingerprint_step(mesh: Mesh, num_perms: int = 64,
+                          shingle: int = 5):
+    """The fingerprint fan-out over a 1-D ``dp`` mesh.
+
+    Returns ``step(chunk_batch (N, L) uint8, chunk_lens (N,) int32) ->
+    (digests (N, 5) uint32, sigs (N, num_perms) uint32)`` on rank 0's
+    device, in row order.  ``N`` must divide by the mesh's size.  Each
+    rank runs the SHA-1 kernel and the sketch kernel (fused with stage 4
+    for 64 permutations and k = 5) on its rows: no collectives, one
+    launch of each kernel per rank.
+    """
+    if mesh.axis_names != ("dp",):
+        raise ValueError(f"a fingerprint mesh has the one axis dp, not "
+                         f"{mesh.axis_names}")
+    fused = num_perms == KERNEL_PERMS and shingle == KERNEL_SHINGLE
+    perms = ([None] * mesh.size if fused
+             else _rank_perms(mesh, num_perms, 1))
+    dev = mesh.device(0)
+
+    def step(chunk_batch, chunk_lens):
+        rows = _shard(mesh, _tensor(chunk_batch, torch.uint8), ("dp", None))
+        lens = _shard(mesh, _tensor(chunk_lens, torch.int32), ("dp",))
+        digests, sigs = [], []
+        for r in range(mesh.size):
+            digests.append(sha1_batch_cuda(rows[r], lens[r]).view(torch.int32))
+            sigs.append(_sign_rows(rows[r], lens[r], shingle, perms[r]))
+        return tuple(torch.cat([x.to(dev) for x in xs]).view(torch.uint32)
+                     for xs in (digests, sigs))
+
+    return step
+
+
+def distributed_fingerprint(mesh: Mesh, chunk_batch, chunk_lens,
+                            num_perms: int = 64, shingle: int = 5):
+    """Build the fan-out step for ``mesh`` and run it once."""
+    return make_fingerprint_step(mesh, num_perms, shingle)(chunk_batch,
+                                                           chunk_lens)

@@ -586,8 +586,10 @@ def main(argv: list[str] | None = None) -> int:
                          "built under another policy are discarded at "
                          "load.")
     ap.add_argument("--fan-out", type=int, default=None,
-                    help="devices to shard each batch over; only 1 is "
-                         "ported (multi-GPU fan-out is later work)")
+                    help="split each segment's chunks over this many "
+                         "devices, one launch of each kernel per device "
+                         "(default: every visible card on cuda, 1 on cpu; "
+                         "more cards than are visible is an error)")
     args = ap.parse_args(argv)
 
     config = DedupConfig(cdc_policy=args.cdc_policy, fan_out=args.fan_out)

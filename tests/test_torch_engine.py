@@ -162,10 +162,71 @@ def test_snapshot_cross_load(tmp_path, direction):
     assert list(reader.exact.items()) == list(writer.exact.items())
 
 
-def test_fan_out_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DedupEngine(DedupConfig(fan_out=2), device="cpu")
-    DedupEngine(DedupConfig(fan_out=1), device="cpu")
+# tests/test_cdc_kernels.py's fan-out geometry.
+FAN_GEO = dict(min_size=64, avg_bits=8, max_size=256, row_tile=8)
+
+
+@pytest.fixture(scope="module")
+def fan_out_reference():
+    rng = np.random.RandomState(4)
+    data = rng.randint(0, 256, 20000, dtype=np.uint8).tobytes()
+    ref = JEngine(JConfig(fan_out=8, use_pallas=False, **FAN_GEO))
+    return data, ref.fingerprint(data)
+
+
+@pytest.mark.parametrize("fan", [dict(fan_out=8), dict(fan_out=2),
+                                 dict(fan_out=4, devices=["cpu"] * 4),
+                                 dict(devices=["cpu"] * 8)],
+                         ids=["fan_out_8", "fan_out_2", "devices_4",
+                              "devices_8_auto"])
+def test_fan_out_matches_fan_out_1_and_reference(fan_out_reference, fan):
+    data, ref = fan_out_reference
+    fan = dict(fan)
+    devices = fan.pop("devices", None)
+    eng = DedupEngine(DedupConfig(**fan, **FAN_GEO), device="cpu",
+                      devices=devices)
+    assert len(eng.devices) == (fan.get("fan_out") or len(devices))
+    ours = eng.fingerprint(data)
+    one = DedupEngine(DedupConfig(fan_out=1, **FAN_GEO),
+                      device="cpu").fingerprint(data)
+    assert ours[0] == one[0] == ref[0]
+    for i in (1, 2):
+        assert np.array_equal(ours[i], one[i])
+        assert np.array_equal(ours[i], ref[i])
+
+
+def test_fan_out_must_divide_row_tile():
+    with pytest.raises(ValueError, match="row_tile"):
+        DedupEngine(DedupConfig(row_tile=8, fan_out=3), device="cpu")
+    with pytest.raises(ValueError):
+        DedupEngine(DedupConfig(fan_out=2), device="cpu",
+                    devices=["cpu"] * 3)
+    assert DedupEngine(DedupConfig(), device="cpu").devices == [
+        torch.device("cpu")]
+
+
+def test_fan_out_above_visible_cards_raises_on_cuda(monkeypatch):
+    # A one-card host as torch sees it; the check comes before any
+    # device memory is touched.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="asked for 2 devices, have 1"):
+        DedupEngine(DedupConfig(fan_out=2), device="cuda")
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_fan_out_runs_are_contiguous_and_balanced(k):
+    rng = np.random.RandomState(k)
+    lens = rng.randint(1, 5000, 200).astype(np.int64)
+    offsets = np.cumsum(lens) - lens
+    runs = tengine._runs(offsets, lens, k)
+    assert len(runs) == k and runs[0][0] == 0 and runs[-1][1] == 200
+    assert all(a <= b for a, b in runs)
+    assert all(b == a2 for (_, b), (a2, _) in zip(runs, runs[1:]))
+    total = int(lens.sum())
+    for a, b in runs:
+        assert abs(int(lens[a:b].sum()) - total / k) <= lens.max()
 
 
 def test_cuda_engine_without_card_raises():

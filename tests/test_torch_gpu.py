@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
-Needs a CUDA card and skips without one.  This file imports nothing of
+Needs a CUDA card and skips without one; the mesh tests place every
+virtual rank on that one card.  This file imports nothing of
 JAX or the JAX package, so it also runs on a GPU host without JAX (where
 tests/conftest.py, which imports JAX, cannot load):
 
@@ -17,14 +18,19 @@ import torch
 
 from fastdfs_tpu_torch.client import fingerprint_buffer
 from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
-from fastdfs_tpu_torch.ops import SEGMENT_SLACK, minhash, rs_code, sha1
+from fastdfs_tpu_torch.entry import dryrun_multichip, entry
+from fastdfs_tpu_torch.ops import SEGMENT_SLACK, minhash, rs_code, sha1, widen
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_np
+from fastdfs_tpu_torch.ops.gear_cdc import (candidate_mask, chunk_stream_np,
+                                            gear_hashes, gear_hashes_np)
 from fastdfs_tpu_torch.ops.streaming import stream_batches
+from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
+                                        make_fingerprint_step,
+                                        make_ingest_step, make_mesh)
 
 
 @pytest.fixture
@@ -225,3 +231,136 @@ def test_stream_batches_through_the_sha1_kernel(cuda_device, depth):
         for i in range(len(lens)):
             assert raw[i * 20:(i + 1) * 20] == \
                 hashlib.sha1(data[i, :lens[i]].tobytes()).digest(), i
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.view(torch.int32).cpu().numpy().view(np.uint32)
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _check_ingest_step(devices):
+    """The ingest step over a mesh of ``devices`` (inputs on the first)
+    against one rank, hashlib, the plain sketch and the whole streams'
+    candidates."""
+    dev, n = devices[0], len(devices)
+    rng = np.random.RandomState(8)
+    streams = torch.from_numpy(
+        rng.randint(0, 256, (2, 2 << 20), dtype=np.uint8)).to(dev)
+    data, lens = _batch(rng, 512, 4096, [4096, 0, 1, 55, 56, 64])
+    d = torch.from_numpy(data).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    plain = _u32(minhash.minhash_batch(d, ln))
+    index = np.concatenate([plain[:128], rng.randint(
+        0, 2**32, (896, 64), dtype=np.uint64).astype(np.uint32)])
+    mesh = make_mesh(n, devices=devices)
+    sp = mesh.shape["sp"]
+    sketches = (survivor_segmin_cuda, minhash_batch_cuda)
+    before = (sha1_batch_cuda.launches, sum(f.launches for f in sketches))
+    cand, digests, sigs, best = make_ingest_step(mesh)(
+        streams.view(2, sp, -1), d, ln, index)
+    torch.cuda.synchronize()
+    assert (sha1_batch_cuda.launches - before[0],
+            sum(f.launches for f in sketches) - before[1]) == (n, n)
+    cand1, dig1, sig1, best1 = make_ingest_step(make_mesh(1, devices=[dev]))(
+        streams.view(2, 1, -1), d, ln, index)
+    for b in range(2):
+        want = candidate_mask(widen(gear_hashes(streams[b])))
+        assert torch.equal(cand[b].reshape(-1), want)
+        assert torch.equal(cand1[b].reshape(-1), want)
+    raw = sha1.digest_bytes(digests)
+    for i in range(len(lens)):
+        assert raw[i * 20:(i + 1) * 20] == \
+            hashlib.sha1(data[i, :lens[i]].tobytes()).digest(), i
+    assert np.array_equal(_u32(dig1), _u32(digests))
+    assert np.array_equal(_u32(sigs), plain)
+    assert np.array_equal(_u32(sig1), plain)
+    assert torch.equal(best, best1)
+    assert (best[:128] == 1.0).all()
+
+
+@pytest.mark.gpu
+def test_ingest_step_on_8_virtual_ranks_matches_1_rank(cuda_device):
+    _check_ingest_step([cuda_device] * 8)
+
+
+@pytest.mark.gpu
+def test_ingest_step_across_cards_matches_1_rank(cards):
+    _check_ingest_step(cards)
+
+
+def _check_engine_fan_out(dev, k, devices=None):
+    data = np.random.default_rng(k).integers(0, 256, 8 << 20,
+                                             dtype=np.uint8).tobytes()
+    cuts = chunk_stream_np(data)
+    want = DedupEngine(DedupConfig(fan_out=1), device=dev).fingerprint(
+        data, cuts=cuts)
+    eng = DedupEngine(DedupConfig(fan_out=k), device=dev, devices=devices)
+    assert len(eng.devices) == k
+    before = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
+    got = eng.fingerprint(data, cuts=cuts)
+    assert (sha1_ragged_cuda.launches - before[0],
+            sketch_ragged_cuda.launches - before[1]) == (k, k)
+    assert got[0] == want[0]
+    assert np.array_equal(got[1], want[1])
+    assert np.array_equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_engine_fan_out_on_card_matches_fan_out_1(cuda_device, k):
+    _check_engine_fan_out(cuda_device, k, [cuda_device] * k)
+
+
+@pytest.mark.gpu
+def test_engine_fan_out_across_cards_matches_fan_out_1(cards):
+    _check_engine_fan_out("cuda", len(cards))
+    # fan_out=None takes every visible card.
+    assert DedupEngine(device="cuda").devices == cards
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2])
+def test_fingerprint_step_on_card_matches_the_kernels(cuda_device, n):
+    _check_fingerprint_step(fingerprint_mesh(n, devices=[cuda_device] * n))
+
+
+@pytest.mark.gpu
+def test_fingerprint_step_and_dryrun_across_cards(cards):
+    _check_fingerprint_step(fingerprint_mesh())
+    dryrun_multichip(len(cards))
+
+
+def _check_fingerprint_step(mesh):
+    data, lens = _batch(np.random.RandomState(mesh.size), 256, 65536,
+                        [65536, 0, 1, 55, 56, 64])
+    d = torch.from_numpy(data).to(mesh.device(0))
+    ln = torch.from_numpy(lens).to(mesh.device(0))
+    step = make_fingerprint_step(mesh)
+    before = (sha1_batch_cuda.launches, minhash_batch_cuda.launches)
+    digests, sigs = step(d, ln)
+    n = mesh.size
+    assert (sha1_batch_cuda.launches - before[0],
+            minhash_batch_cuda.launches - before[1]) == (n, n)
+    assert np.array_equal(_u32(digests), _u32(sha1_batch_cuda(d, ln)))
+    assert np.array_equal(_u32(sigs), _u32(minhash_batch_cuda(d, ln)))
+
+
+@pytest.mark.gpu
+def test_entry_and_dryrun_on_card(cuda_device):
+    fn, (chunks, lengths) = entry()
+    out = fn(chunks, lengths)
+    raw = sha1.digest_bytes(out["sha1"])
+    for i, row in enumerate(chunks):
+        assert raw[i * 20:(i + 1) * 20] == hashlib.sha1(row.tobytes()).digest()
+    plain = minhash.minhash_batch(torch.from_numpy(chunks).to(cuda_device),
+                                  torch.from_numpy(lengths).to(cuda_device))
+    assert np.array_equal(_u32(out["minhash"]), _u32(plain))
+    want = (gear_hashes_np(chunks.reshape(-1)) & 0x1FFF) == 0
+    assert np.array_equal(out["cut_candidates"].cpu().numpy(), want)
+    dryrun_multichip(8, devices=[cuda_device] * 8)

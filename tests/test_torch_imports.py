@@ -46,20 +46,30 @@ def test_every_module_is_listed():
                  "ops.cuda_minhash", "ops._build", "ops.gear_cdc",
                  "ops.gf256", "ops.rs_code", "ops.streaming", "client",
                  "client.fingerprint", "dedup.index", "dedup.engine",
-                 "sidecar"):
+                 "sidecar", "parallel", "parallel.mesh",
+                 "parallel.collectives", "parallel.ingest_step", "entry",
+                 "tools", "tools.timing", "tools.profile_fingerprint"):
         assert "fastdfs_tpu_torch." + want in names
 
 
-def test_sidecar_main_refuses_cuda_without_card(tmp_path):
+def test_sidecar_main_refuses_cuda_without_card(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
     from fastdfs_tpu_torch import sidecar
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sidecar.main(["--socket", str(tmp_path / "s.sock")])
-    with pytest.raises(NotImplementedError):
-        sidecar.main(["--socket", str(tmp_path / "s.sock"), "--platform",
-                      "cpu", "--fan-out", "2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sidecar.main(["--socket", str(tmp_path / "s.sock"), "--fan-out",
+                      "2"])
+    # --fan-out on the CPU builds and warms a fanned-out engine.
+    served = []
+    monkeypatch.setattr(sidecar.DedupSidecar, "serve_forever",
+                        lambda self, **kw: served.append(self))
+    monkeypatch.setattr(sidecar.signal, "signal", lambda *a: None)
+    assert sidecar.main(["--socket", str(tmp_path / "s.sock"), "--platform",
+                         "cpu", "--fan-out", "2"]) == 0
+    assert served[0].engine.devices == [torch.device("cpu")] * 2
 
 
 def test_kernel_sources_and_build_are_keyed():
