@@ -54,9 +54,23 @@ before the last line):
    and 2 ranks against the kernels; ``entry()`` and
    ``dryrun_multichip(8)``.  Times of both steps, the index query and the
    stage-1 CDC beside their bounds.
+9. The live system: ``fdfs_storaged`` (built if missing, through
+   ``tests/harness.py``) with ``dedup_mode = sidecar`` on the port's
+   DedupSidecar, serving on the card in a thread.  The port's
+   ``StorageClient(device="cuda")`` uploads a seeded corpus of 64 MB files:
+   A, B = A with scattered edits and D unique by plain uploads (the daemon
+   cuts them and sends DEDUP_FINGERPRINT_CUTS), then C = A and E = A with a
+   new last 1 MB by negotiated uploads (fingerprinted on the card).  Every
+   file must be a recipe (the daemon fails open to flat files when the
+   sidecar does not answer), read back exactly; C ships 0 bytes and E only
+   its new chunks; near_dups(B) ranks A first; a corrupted chunk is found
+   by a scrub pass whose DEDUP_VERIFY goes to the sidecar.  Each served
+   segment launches each kernel once and each negotiated upload one
+   SHA-1.  Wall per 64 MB upload, plain and negotiated, and the stitched
+   timeline of one traced plain upload.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-5, 6 and 8 (each counted from 0 just before its run); launches made only
+5, 6, 8 and 9 (each counted from 0 just before its run); launches made only
 to time or compare a kernel are not counted.  The second-to-last line is a
 JSON object with one entry per kernel; the last is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card the script exits non-zero and
@@ -65,13 +79,17 @@ prints no result.
 
 from __future__ import annotations
 
+import glob
 import hashlib
+import importlib.util
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
 import struct
+import subprocess
 import sys
 import tempfile
 import threading
@@ -80,8 +98,12 @@ import time
 import numpy as np
 import torch
 
-from fastdfs_tpu_torch.client import fingerprint_buffer
+from fastdfs_tpu_torch import sidecar as sidecar_mod
+from fastdfs_tpu_torch.client import StorageClient, fingerprint_buffer
+from fastdfs_tpu_torch.client import fingerprint as fingerprint_mod
+from fastdfs_tpu_torch.client import storage_client as storage_client_mod
 from fastdfs_tpu_torch.common import protocol
+from fastdfs_tpu_torch.dedup import engine as engine_mod
 from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.entry import dryrun_multichip, entry
 from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, _build, minhash, rs_code,
@@ -104,6 +126,21 @@ from fastdfs_tpu_torch.parallel.ingest_step import (HALO, block_candidates,
                                                     index_best)
 from fastdfs_tpu_torch.sidecar import DedupSidecar
 from fastdfs_tpu_torch.tools.timing import card_line, median_ms, once_ms
+from fastdfs_tpu_torch.trace import Tracer, decode_dump, render_timeline
+
+
+def _load_harness():
+    """``tests/harness.py`` by its path: a host may have another package
+    named ``tests`` on its path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "harness.py")
+    spec = importlib.util.spec_from_file_location("fdfs_live_harness", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+harness = _load_harness()
 
 SEED = 20261016
 SEGMENT = 64 << 20                     # storage.conf dedup_segment_bytes
@@ -717,6 +754,16 @@ def phase_client(dev, card: str) -> int:
           + ", ".join(f"{name} {us / 1e3:.3f} ms" for name, us in busy.items())
           + f"; busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
+    # The same padded payload copied from pageable memory, as the client
+    # staged it before it kept a pinned buffer.
+    pageable = np.array(host, copy=True)
+    _, copies = device_profile(lambda: torch.from_numpy(pageable).to(dev))
+    pageable_ms = sum(us for key, (us, _) in copies.items()
+                      if is_copy(key)) / 1e3
+    print(f"  device copy time of the {len(host)}-byte staged payload: "
+          f"from the pinned staging {busy['copies'] / 1e3:.3f} ms (all copies "
+          f"of the profiled call); from pageable memory, as before, "
+          f"{pageable_ms:.3f} ms  [{card}]")
     return launches
 
 
@@ -1048,6 +1095,331 @@ def phase_parallel(dev, card: str, seg: bytes, cuts: list[int]
             sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS))
 
 
+# Phase 9: the live system.  The storage daemon's sources, as the plain
+# g++ build lists them (tools/build_native_gxx.sh).
+GXX_SCRIPT = os.path.join("tools", "build_native_gxx.sh")
+SMOKE_BUILD = os.path.join("native", "build-smoke")
+LIVE_FILES = 5                         # A, B, D plain; C, E negotiated
+LIVE_TAIL = SEGMENT >> 6               # E's replaced tail, 1 MB
+SCRUB_CONF = "scrub_interval_s = 0\nchunk_gc_grace_s = 1"
+
+
+def build_storaged() -> tuple[str, float]:
+    """``fdfs_storaged`` and the seconds its build took: the checkout's
+    build if there is one, else ``tests/harness.ensure_native_built``; if
+    the host's g++ rejects a source of the full tree (g++ 12 and later
+    reject ``native/tracker/hotmap.cc``, which uses ``ptrdiff_t`` without
+    ``<cstddef>``), the storage daemon alone with ``-include cstddef`` into
+    ``native/build-smoke/``, one g++ per source, all started together."""
+    t0 = time.monotonic()
+    if os.path.exists(harness.STORAGED):
+        return harness.STORAGED, 0.0
+    try:
+        harness.ensure_native_built()
+        return harness.STORAGED, time.monotonic() - t0
+    except (subprocess.CalledProcessError, OSError) as e:
+        log = ((getattr(e, "stdout", b"") or b"")
+               + (getattr(e, "stderr", b"") or b"")).decode(errors="replace")
+        errors = [line for line in log.splitlines() if "error" in line]
+        print(f"  the native tree did not build ({type(e).__name__}"
+              + (f": {errors[0].strip()}" if errors else "") + "); building "
+              "the storage daemon alone with -include cstddef")
+    with open(os.path.join(harness.REPO, GXX_SCRIPT)) as fh:
+        script = fh.read()
+    srcs = []
+    for var in ("srcs_common", "srcs_storage"):
+        m = re.search(var + r'="([^"]*)"', script)
+        check(m is not None, f"{GXX_SCRIPT} lists no {var}")
+        srcs += m.group(1).split()
+    native = os.path.join(harness.REPO, "native")
+    out = os.path.join(harness.REPO, SMOKE_BUILD)
+    os.makedirs(out, exist_ok=True)
+    flags = ["-std=c++17", "-O2", "-I.", "-include", "cstddef"]
+    jobs = [(["g++", *flags, "-c", src, "-o",
+              os.path.join(out, src.replace("/", "_")[:-3] + ".o")], src)
+            for src in srcs]
+    jobs.append((["g++", *flags, "-msha", "-mssse3", "-msse4.1", "-c",
+                  "common/sha1_ni.cc", "-o",
+                  os.path.join(out, "common_sha1_ni.o")], "common/sha1_ni.cc"))
+    procs = [(subprocess.Popen(cmd, cwd=native, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT), src)
+             for cmd, src in jobs]
+    for proc, src in procs:
+        log = proc.communicate()[0].decode(errors="replace")
+        check(proc.returncode == 0, f"g++ rejected {src}:\n{log[-2000:]}")
+    exe = os.path.join(out, "fdfs_storaged")
+    objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
+    link = subprocess.run(["g++", *flags, "-rdynamic", "storage/main.cc",
+                           *objs, "-lpthread", "-o", exe], cwd=native,
+                          capture_output=True, text=True)
+    check(link.returncode == 0, f"linking fdfs_storaged failed:\n"
+                                f"{link.stderr[-2000:]}")
+    harness.STORAGED = exe
+    return exe, time.monotonic() - t0
+
+
+class LaunchCounts:
+    """Launches of the kernel wrappers as each module of the live path
+    calls them: the sidecar's engine, the sidecar's verify and the
+    client's fingerprint.  A wrapper's own count goes up where it
+    launches; the difference across each call is attributed to the
+    calling module under a lock, so concurrent calls cannot blur it."""
+
+    SITES = (("sidecar sha1", engine_mod, "sha1_ragged_cuda"),
+             ("sidecar sketch", engine_mod, "sketch_ragged_cuda"),
+             ("verify sha1", sidecar_mod, "sha1_ragged_cuda"),
+             ("client sha1", fingerprint_mod, "sha1_ragged_cuda"))
+
+    def __init__(self):
+        self.n = {name: 0 for name, _, _ in self.SITES}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def _wrap(self, name, fn):
+        def counted_call(*args, **kw):
+            with self._lock:
+                before = fn.launches
+                out = fn(*args, **kw)
+                self.n[name] += fn.launches - before
+            return out
+        return counted_call
+
+    def __enter__(self):
+        for name, mod, attr in self.SITES:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+    def reset(self):
+        with self._lock:
+            self.n = dict.fromkeys(self.n, 0)
+
+
+def live_corpus() -> dict[str, bytes]:
+    """A; B = A with 256 scattered 64-byte edits; D unique; C = A; E = A
+    with its last 1 MB replaced: 64 MB each (one daemon segment), seeded
+    (edits and tail scale with ``SEGMENT``)."""
+    rng = np.random.default_rng(SEED + 9)
+    a = rng.integers(0, 256, SEGMENT, dtype=np.uint8)
+    b = a.copy()
+    for pos in rng.integers(0, SEGMENT - 64, SEGMENT >> 18):
+        b[pos:pos + 64] = rng.integers(0, 256, 64, dtype=np.uint8)
+    d = rng.integers(0, 256, SEGMENT, dtype=np.uint8)
+    e = a.copy()
+    e[-LIVE_TAIL:] = rng.integers(0, 256, LIVE_TAIL, dtype=np.uint8)
+    return {"A": a.tobytes(), "B": b.tobytes(), "C": a.tobytes(),
+            "D": d.tobytes(), "E": e.tobytes()}
+
+
+def is_recipe(base: str, fid: str) -> bool:
+    return os.path.basename(fid) + ".rcp" in harness.recipe_keys(base)
+
+
+def is_flat(base: str, fid: str) -> bool:
+    return any(os.path.isfile(p) for p in glob.glob(os.path.join(
+        base, "data", "**", os.path.basename(fid)), recursive=True))
+
+
+def wait_for(pred, timeout: float):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.25)
+    return pred()
+
+
+def phase_live(dev, card: str) -> tuple[int, int]:
+    """Phase 9; returns the SHA-1 and sketch launches of the live run."""
+    storaged, build_s = build_storaged()
+    print(f"phase 9: the live system on the card: {storaged} ready in "
+          f"{build_s:.1f} s")
+    files = live_corpus()
+    work = tempfile.mkdtemp(prefix="fdfs9")
+    base = os.path.join(work, "st")
+    sidecar = DedupSidecar(os.path.join(work, "dedup.sock"),
+                           config=DedupConfig(), device=dev)
+    t0 = time.monotonic()
+    sidecar.engine.warmup()
+    print(f"  the port's sidecar on {dev} warmed up in "
+          f"{time.monotonic() - t0:.2f} s")
+    segments = []
+    fingerprint = sidecar.engine.fingerprint
+
+    def serve_segment(data, *args, **kw):       # one call per segment
+        segments.append(len(data))
+        return fingerprint(data, *args, **kw)
+
+    sidecar.engine.fingerprint = serve_segment
+    ready = threading.Event()
+    server = threading.Thread(target=sidecar.serve_forever,
+                              kwargs={"ready_event": ready}, daemon=True)
+    server.start()
+    check(ready.wait(timeout=60), "sidecar did not bind")
+    daemon = None
+    try:
+        daemon = harness.start_storage(base, dedup_mode="sidecar",
+                                       dedup_sidecar=sidecar.socket_path,
+                                       extra=SCRUB_CONF)
+        with LaunchCounts() as counts:
+            out = drive_live(dev, card, files, base, daemon, sidecar,
+                             counts, segments)
+    finally:
+        if daemon is not None:
+            daemon.stop()
+        sidecar.stop()
+        server.join(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    check(not server.is_alive(), "sidecar thread did not stop")
+    return out
+
+
+def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
+               ) -> tuple[int, int]:
+    sc = StorageClient("127.0.0.1", daemon.port, timeout=600.0, device=dev)
+    fp_ms = []
+    fp = storage_client_mod.fingerprint_buffer
+
+    def timed_fingerprint(*args, **kw):
+        t0 = time.monotonic()
+        out = fp(*args, **kw)
+        fp_ms.append((time.monotonic() - t0) * 1e3)
+        return out
+
+    storage_client_mod.fingerprint_buffer = timed_fingerprint
+    fids, wall, engine, up_stats, tracers = {}, {}, {}, {}, {}
+
+    def upload(name, send):
+        """``send()`` timed on the client clock; D's and C's traced, by
+        hand (``traced_upload`` goes through a tracker)."""
+        t0 = time.monotonic()
+        if name not in "DC":
+            fids[name] = send()
+        else:
+            tracer = tracers[name] = Tracer()
+            with tracer.span("client.upload"):
+                sc.conn.trace_ctx = tracer.wire_ctx()
+                fids[name] = send()
+            sc.conn.trace_ctx = None
+        wall[name] = (time.monotonic() - t0) * 1e3
+
+    try:
+        counts.reset()
+        segments.clear()
+        for name in "ABD":                         # plain: the daemon cuts
+            before = sidecar.stats["engine_us"]
+            upload(name, lambda: sc.upload_buffer(files[name], ext="bin"))
+            engine[name] = (sidecar.stats["engine_us"] - before) / 1e3
+        near = sc.near_dups(fids["B"])
+        check(bool(near) and near[0][0] == fids["A"],
+              f"near_dups(B) does not rank A first: {near}")
+        stored = set(harness.chunk_digests(base))
+        for name in "CE":                          # negotiated
+            want = fingerprint_pairs(files[name], chunk_stream_np(files[name]))
+            missing = sum(n for n, d in want if d.hex() not in stored)
+            before = sidecar.stats["engine_us"]
+            st = up_stats[name] = {}
+            upload(name, lambda: sc.upload_buffer_dedup(
+                files[name], ext="bin", chunks=None, stats=st))
+            engine[name] = (sidecar.stats["engine_us"] - before) / 1e3
+            check(st["fallback"] == "", f"{name}: fell back ({st})")
+            check(st["chunks_total"] == len(want)
+                  and st["bytes_sent"] == missing,
+                  f"{name}: shipped {st}, expected {missing} bytes of the "
+                  f"{len(want)} chunks")
+            stored = set(harness.chunk_digests(base))
+        check(up_stats["C"]["chunks_missing"] == 0
+              and up_stats["C"]["bytes_sent"] == 0,
+              f"C (a copy of A) shipped {up_stats['C']}")
+        check(0 < up_stats["E"]["bytes_sent"] <= LIVE_TAIL + (2 << 16),
+              f"E shipped more than its changed tail: {up_stats['E']}")
+        fingerprint_launches = dict(counts.n)
+        served = list(segments)
+
+        # Stored as recipes, read back exactly, deduplicated.
+        for name, fid in fids.items():
+            check(is_recipe(base, fid) and not is_flat(base, fid),
+                  f"{name} ({fid}) was not stored as a recipe: the daemon "
+                  f"failed open")
+            check(sc.download_to_buffer(fid) == files[name],
+                  f"{name}: download != upload")
+        off, ln = SEGMENT // 2 + 7, LIVE_TAIL + 13
+        check(sc.download_to_buffer(fids["B"], off, ln)
+              == files["B"][off:off + ln], "ranged download of B differs")
+        unique = sum(harness.chunk_digests(base).values())
+        logical = sum(len(v) for v in files.values())
+        check(unique < 0.5 * logical,
+              f"chunk store holds {unique} of {logical} logical bytes")
+
+        # The scrubber's DEDUP_VERIFY through the port's sidecar.
+        before = dict(counts.n)
+        harness.corrupt_chunk(base)
+        t0 = time.monotonic()
+        sc.scrub_kick()
+        scrub = wait_for(lambda: (lambda s: s if s["passes"] >= 1 else None)(
+            sc.scrub_status()), timeout=300)
+        scrub_s = time.monotonic() - t0
+        check(bool(scrub), f"scrub pass never finished: {sc.scrub_status()}")
+        check(scrub["chunks_corrupt"] >= 1,
+              f"scrub did not report the corrupt chunk: {scrub}")
+        verify = counts.n["verify sha1"] - before["verify sha1"]
+        check(verify >= 1, "the scrub sent no DEDUP_VERIFY to the sidecar")
+        spans = decode_dump(sc.trace_dump(),
+                            f"storage 127.0.0.1:{daemon.port}")
+    finally:
+        storage_client_mod.fingerprint_buffer = fp
+        sc.close()
+
+    # The kernels did the work: one launch of each per served segment,
+    # one SHA-1 launch per negotiated upload.
+    n = fingerprint_launches
+    check(len(served) == LIVE_FILES and all(x == SEGMENT for x in served),
+          f"the sidecar served {len(served)} segments {served}, not "
+          f"{LIVE_FILES} of {SEGMENT} bytes")
+    check(n["sidecar sha1"] == len(served) and n["sidecar sketch"]
+          == len(served), f"{n} for {len(served)} segments")
+    check(n["client sha1"] == 2, f"{n['client sha1']} client SHA-1 launches "
+                                 f"for 2 negotiated uploads")
+    check(sidecar.stats["fingerprint_bytes"] == LIVE_FILES * SEGMENT,
+          f"sidecar fingerprinted {sidecar.stats['fingerprint_bytes']} bytes")
+    print(f"  A, B, D (plain) and C, E (negotiated) stored as recipes and "
+          f"read back exactly; near_dups(B) ranks A first ({near[0][1]:.4f}); "
+          f"chunk store {unique / 1e6:.1f} MB of {logical / 1e6:.1f} MB "
+          f"logical; C shipped 0 bytes, E {up_stats['E']['bytes_sent']} B "
+          f"in {up_stats['E']['chunks_missing']} chunks")
+    print(f"  launches: {len(served)} segments served, sidecar SHA-1 "
+          f"{n['sidecar sha1']}, sketch {n['sidecar sketch']}; client "
+          f"SHA-1 {n['client sha1']}; scrub: {verify} verify launches, "
+          f"{scrub['chunks_verified']} chunks verified, "
+          f"{scrub['chunks_corrupt']} corrupt, pass {scrub_s:.1f} s")
+    print(f"  plain upload of {SEGMENT >> 20} MB through the daemon, client "
+          "clock ms (of which in the sidecar's engine): "
+          + ", ".join(f"{k} {wall[k]:.1f} ({engine[k]:.1f})" for k in "ABD")
+          + f"  [{card}]")
+    print(f"  negotiated upload of {SEGMENT >> 20} MB, client clock ms "
+          "(fingerprint on the card; the daemon's reindex in the sidecar's "
+          "engine): "
+          + ", ".join(f"{k} {wall[k]:.1f} (fingerprint {f:.1f}, share "
+                      f"{f / wall[k]:.3f}; engine {engine[k]:.1f})"
+                      for k, f in zip("CE", fp_ms))
+          + f"  [{card}]")
+    for name, what in (("D", "plain"), ("C", "negotiated")):
+        tracer = tracers[name]
+        print(f"  traced {what} upload of {name} (Tracer on a StorageClient; "
+              f"traced_upload needs a tracker):")
+        for line in render_timeline(spans + tracer.spans,
+                                    tracer.trace_id).splitlines():
+            print("    " + line)
+    return (n["sidecar sha1"] + n["client sha1"] + verify,
+            n["sidecar sketch"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -1088,9 +1460,13 @@ def main() -> int:
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
     marks.append(time.monotonic())
+    sha1_n, sketch_n = phase_live(dev, card)
+    rec_sha1.launches += sha1_n
+    rec_sketch.launches += sketch_n
+    marks.append(time.monotonic())
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-8: " + ", ".join(
+          f"(phases 2-9: " + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)
     print(json.dumps({"kernels": [rec_sha1.json(), rec_sketch.json()]}))

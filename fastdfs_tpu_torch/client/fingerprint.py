@@ -10,7 +10,8 @@ SHA-1 digests as every daemon-side path.
 
 Two routes, chosen by ``device``:
 
-- ``cuda`` (the default): the payload goes to the card once, with
+- ``cuda`` (the default): the payload goes to the card once, from this
+  thread's pinned staging (kept and grown as the engine's is), with
   ``SEGMENT_SLACK`` zero bytes past its end (``gear_cdc.upload_padded``);
   the device CDC pass cuts it, and one launch of the ragged SHA-1 kernel
   (``ops.cuda_sha1.sha1_ragged_cuda``) hashes every chunk where it lies

@@ -345,14 +345,40 @@ def upload_padded(data: bytes, device: str | torch.device, slack: int = 0
     ``slack`` lets a kernel that loads a little past the last chunk
     (``ops.SEGMENT_SLACK``) share this buffer with the CDC pass even when
     ``len(data)`` is itself a power of two.  Returns this thread's host
-    staging (``staging_buffer``, reused by its next call) and the device
-    buffer; on the CPU the two share memory.
+    staging, valid until its next call, and the device buffer.  On a
+    card the staging is pinned (``_pinned_staging``) and the copy runs
+    from it without blocking the host; on the CPU the two share memory.
     """
     n = len(data)
-    buf = staging_buffer(_cdc_len(n) + slack)
+    size = _cdc_len(n) + slack
+    dev = torch.device(device)
+    pinned = _pinned_staging(size) if dev.type == "cuda" else None
+    buf = staging_buffer(size) if pinned is None else pinned.numpy()
     buf[:n] = np.frombuffer(data, dtype=np.uint8)
     buf[n:] = 0
-    return buf, torch.from_numpy(buf).to(device)
+    if pinned is None:
+        return buf, torch.from_numpy(buf).to(dev)
+    out = pinned.to(dev, non_blocking=True)
+    _pinned.uploaded = torch.cuda.Event()
+    _pinned.uploaded.record(torch.cuda.current_stream(dev))
+    return buf, out
+
+
+_pinned = threading.local()
+
+
+def _pinned_staging(size: int) -> torch.Tensor:
+    """This thread's pinned host staging, as the engine keeps one: the
+    first ``size`` bytes of a buffer grown to the largest size asked for,
+    handed out only after the previous upload from it has landed."""
+    if getattr(_pinned, "uploaded", None) is not None:
+        _pinned.uploaded.synchronize()
+        _pinned.uploaded = None
+    buf = getattr(_pinned, "buf", None)
+    if buf is None or buf.shape[0] < size:
+        buf = _pinned.buf = torch.empty(size, dtype=torch.uint8,
+                                        pin_memory=True)
+    return buf[:size]
 
 
 def device_cuts(host: np.ndarray, dev: torch.Tensor, n: int,

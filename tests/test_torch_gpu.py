@@ -199,6 +199,47 @@ def test_fingerprint_buffer_on_card_matches_cpu_route(cuda_device, n):
 
 
 @pytest.mark.gpu
+def test_fingerprint_buffer_through_pinned_staging(cuda_device):
+    """The client's 64 MB payload goes up from this thread's pinned
+    staging, which the next call reuses; digests equal hashlib."""
+    from fastdfs_tpu_torch.ops import gear_cdc
+
+    rng = np.random.RandomState(64)
+    payloads = [rng.randint(0, 256, size=1 << 26, dtype=np.uint8).tobytes(),
+                rng.randint(0, 256, size=(1 << 26) - 999,
+                            dtype=np.uint8).tobytes()]
+    before = sha1_ragged_cuda.launches
+    staging = []
+    for data in payloads:
+        fps = fingerprint_buffer(data, device=cuda_device)
+        staging.append(gear_cdc._pinned.buf)
+        assert staging[-1].is_pinned()
+        cuts = chunk_stream_np(data)
+        assert [f.length for f in fps] == np.diff([0] + cuts).tolist()
+        starts = [0] + cuts[:-1]
+        for f, a, b in zip(fps, starts, cuts):
+            assert f.digest == hashlib.sha1(data[a:b]).digest()
+    assert staging[0] is staging[1]
+    assert sha1_ragged_cuda.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_storage_client_on_the_card(cuda_device):
+    """``device="cuda"`` resolves on a card and the client connects."""
+    import socket
+
+    from fastdfs_tpu_torch.client import FdfsClient, StorageClient
+
+    with socket.socket() as srv:
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        sc = StorageClient("127.0.0.1", srv.getsockname()[1])
+        assert sc.device.type == "cuda"
+        sc.close()
+    assert FdfsClient("127.0.0.1:1").device.type == "cuda"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k,m", [(4, 2), (10, 4), (32, 8)])
 def test_gf_matmul_on_card(cuda_device, k, m):
     shards = np.random.default_rng(k).integers(0, 256, (k, 100_003),

@@ -35,7 +35,7 @@ def test_no_module_imports_jax_or_the_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 17
+    assert int(n_modules) >= 24
     assert bad.strip() == "[]"
 
 
@@ -48,7 +48,10 @@ def test_every_module_is_listed():
                  "client.fingerprint", "dedup.index", "dedup.engine",
                  "sidecar", "parallel", "parallel.mesh",
                  "parallel.collectives", "parallel.ingest_step", "entry",
-                 "tools", "tools.timing", "tools.profile_fingerprint"):
+                 "tools", "tools.timing", "tools.profile_fingerprint",
+                 "common.ini_config", "common.jumphash", "client.conn",
+                 "client.tracker_client", "client.storage_client",
+                 "client.client", "trace"):
         assert "fastdfs_tpu_torch." + want in names
 
 
@@ -80,3 +83,21 @@ def test_kernel_sources_and_build_are_keyed():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()  # stable key for unchanged sources
+
+
+def test_client_constructors_refuse_cuda_without_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    from fastdfs_tpu_torch.client import FdfsClient, StorageClient
+
+    conf = tmp_path / "client.conf"
+    conf.write_text("tracker_server = 127.0.0.1:1\n")
+    for make in (lambda: StorageClient("127.0.0.1", 1),
+                 lambda: FdfsClient("127.0.0.1:1"),
+                 lambda: FdfsClient.from_conf(str(conf))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    # On the CPU they build; the storage client connects only then.
+    assert FdfsClient.from_conf(str(conf), device="cpu").device.type == "cpu"
+    with pytest.raises(OSError):
+        StorageClient("127.0.0.1", 1, timeout=1.0, device="cpu")
