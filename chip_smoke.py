@@ -54,8 +54,9 @@ before the last line):
    and 2 ranks against the kernels; ``entry()`` and
    ``dryrun_multichip(8)``.  Times of both steps, the index query and the
    stage-1 CDC beside their bounds.
-9. The live system: ``fdfs_storaged`` (built if missing, through
-   ``tests/harness.py``) with ``dedup_mode = sidecar`` on the port's
+9. The live system: ``fdfs_storaged`` (built with ``fdfs_trackerd`` if
+   the checkout has neither, through ``tests/torch_native.py``) with
+   ``dedup_mode = sidecar`` on the port's
    DedupSidecar, serving on the card in a thread.  The port's
    ``StorageClient(device="cuda")`` uploads a seeded corpus of 64 MB files:
    A, B = A with scattered edits and D unique by plain uploads (the daemon
@@ -68,9 +69,25 @@ before the last line):
    segment launches each kernel once and each negotiated upload one
    SHA-1.  Wall per 64 MB upload, plain and negotiated, and the stitched
    timeline of one traced plain upload.
+10. The tracker-routed cluster: ``fdfs_trackerd`` and two
+   ``fdfs_storaged`` of one group, each with ``dedup_mode = sidecar`` on
+   its own port DedupSidecar on the card (two engines on one card, as
+   two hosts would have).  ``python -m fastdfs_tpu_torch.cli upload
+   --dedup`` (no ``--device``: the card by default) sends A from a
+   process of its own; ``cli.main`` here sends A' = A with a new last
+   1 MB, which ships only its new chunks; ``FdfsClient(device="cuda")``
+   uploads D plainly, then A again under ``traced_upload``, whose spans
+   ``collect_cluster_spans`` stitches from the tracker and both
+   storages.  Every file downloads byte-exact from both storages and is
+   a recipe on the storage that took it; each sidecar launches each
+   kernel once per segment it serves, the client one SHA-1 per
+   negotiated upload made here, and the replicas' own fingerprinting of
+   synced files is counted, not assumed.  ``monitor.gather_top`` and
+   ``cli --device cuda group status`` / ``health`` show both storages
+   live.  Wall per 64 MB upload and the stitched timeline.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-5, 6, 8 and 9 (each counted from 0 just before its run); launches made only
+5, 6, 8, 9 and 10 (each counted from 0 just before its run); launches made only
 to time or compare a kernel are not counted.  The second-to-last line is a
 JSON object with one entry per kernel; the last is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card the script exits non-zero and
@@ -79,12 +96,13 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import hashlib
 import importlib.util
+import io
 import json
 import os
-import re
 import shutil
 import socket
 import statistics
@@ -98,8 +116,12 @@ import time
 import numpy as np
 import torch
 
+from fastdfs_tpu_torch import cli as cli_mod
+from fastdfs_tpu_torch import monitor as monitor_mod
 from fastdfs_tpu_torch import sidecar as sidecar_mod
-from fastdfs_tpu_torch.client import StorageClient, fingerprint_buffer
+from fastdfs_tpu_torch.client import (FdfsClient, StorageClient,
+                                      TrackerClient, fingerprint_buffer)
+from fastdfs_tpu_torch.client.conn import ProtocolError, StatusError
 from fastdfs_tpu_torch.client import fingerprint as fingerprint_mod
 from fastdfs_tpu_torch.client import storage_client as storage_client_mod
 from fastdfs_tpu_torch.common import protocol
@@ -126,21 +148,24 @@ from fastdfs_tpu_torch.parallel.ingest_step import (HALO, block_candidates,
                                                     index_best)
 from fastdfs_tpu_torch.sidecar import DedupSidecar
 from fastdfs_tpu_torch.tools.timing import card_line, median_ms, once_ms
-from fastdfs_tpu_torch.trace import Tracer, decode_dump, render_timeline
+from fastdfs_tpu_torch.trace import (Tracer, collect_cluster_spans,
+                                     decode_dump, render_timeline,
+                                     traced_upload)
 
 
-def _load_harness():
-    """``tests/harness.py`` by its path: a host may have another package
-    named ``tests`` on its path."""
+def _load_native():
+    """``tests/torch_native.py`` (the daemons' build and start) by its
+    path: a host may have another package named ``tests`` on its path."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "harness.py")
-    spec = importlib.util.spec_from_file_location("fdfs_live_harness", path)
+                        "torch_native.py")
+    spec = importlib.util.spec_from_file_location("fdfs_torch_native", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-harness = _load_harness()
+native = _load_native()
+harness = native.harness
 
 SEED = 20261016
 SEGMENT = 64 << 20                     # storage.conf dedup_segment_bytes
@@ -1095,67 +1120,10 @@ def phase_parallel(dev, card: str, seg: bytes, cuts: list[int]
             sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS))
 
 
-# Phase 9: the live system.  The storage daemon's sources, as the plain
-# g++ build lists them (tools/build_native_gxx.sh).
-GXX_SCRIPT = os.path.join("tools", "build_native_gxx.sh")
-SMOKE_BUILD = os.path.join("native", "build-smoke")
+# Phase 9: the live system.
 LIVE_FILES = 5                         # A, B, D plain; C, E negotiated
 LIVE_TAIL = SEGMENT >> 6               # E's replaced tail, 1 MB
 SCRUB_CONF = "scrub_interval_s = 0\nchunk_gc_grace_s = 1"
-
-
-def build_storaged() -> tuple[str, float]:
-    """``fdfs_storaged`` and the seconds its build took: the checkout's
-    build if there is one, else ``tests/harness.ensure_native_built``; if
-    the host's g++ rejects a source of the full tree (g++ 12 and later
-    reject ``native/tracker/hotmap.cc``, which uses ``ptrdiff_t`` without
-    ``<cstddef>``), the storage daemon alone with ``-include cstddef`` into
-    ``native/build-smoke/``, one g++ per source, all started together."""
-    t0 = time.monotonic()
-    if os.path.exists(harness.STORAGED):
-        return harness.STORAGED, 0.0
-    try:
-        harness.ensure_native_built()
-        return harness.STORAGED, time.monotonic() - t0
-    except (subprocess.CalledProcessError, OSError) as e:
-        log = ((getattr(e, "stdout", b"") or b"")
-               + (getattr(e, "stderr", b"") or b"")).decode(errors="replace")
-        errors = [line for line in log.splitlines() if "error" in line]
-        print(f"  the native tree did not build ({type(e).__name__}"
-              + (f": {errors[0].strip()}" if errors else "") + "); building "
-              "the storage daemon alone with -include cstddef")
-    with open(os.path.join(harness.REPO, GXX_SCRIPT)) as fh:
-        script = fh.read()
-    srcs = []
-    for var in ("srcs_common", "srcs_storage"):
-        m = re.search(var + r'="([^"]*)"', script)
-        check(m is not None, f"{GXX_SCRIPT} lists no {var}")
-        srcs += m.group(1).split()
-    native = os.path.join(harness.REPO, "native")
-    out = os.path.join(harness.REPO, SMOKE_BUILD)
-    os.makedirs(out, exist_ok=True)
-    flags = ["-std=c++17", "-O2", "-I.", "-include", "cstddef"]
-    jobs = [(["g++", *flags, "-c", src, "-o",
-              os.path.join(out, src.replace("/", "_")[:-3] + ".o")], src)
-            for src in srcs]
-    jobs.append((["g++", *flags, "-msha", "-mssse3", "-msse4.1", "-c",
-                  "common/sha1_ni.cc", "-o",
-                  os.path.join(out, "common_sha1_ni.o")], "common/sha1_ni.cc"))
-    procs = [(subprocess.Popen(cmd, cwd=native, stdout=subprocess.PIPE,
-                               stderr=subprocess.STDOUT), src)
-             for cmd, src in jobs]
-    for proc, src in procs:
-        log = proc.communicate()[0].decode(errors="replace")
-        check(proc.returncode == 0, f"g++ rejected {src}:\n{log[-2000:]}")
-    exe = os.path.join(out, "fdfs_storaged")
-    objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
-    link = subprocess.run(["g++", *flags, "-rdynamic", "storage/main.cc",
-                           *objs, "-lpthread", "-o", exe], cwd=native,
-                          capture_output=True, text=True)
-    check(link.returncode == 0, f"linking fdfs_storaged failed:\n"
-                                f"{link.stderr[-2000:]}")
-    harness.STORAGED = exe
-    return exe, time.monotonic() - t0
 
 
 class LaunchCounts:
@@ -1163,16 +1131,28 @@ class LaunchCounts:
     calls them: the sidecar's engine, the sidecar's verify and the
     client's fingerprint.  A wrapper's own count goes up where it
     launches; the difference across each call is attributed to the
-    calling module under a lock, so concurrent calls cannot blur it."""
+    calling module under a lock, so concurrent calls cannot blur it.
+
+    ``tags`` pairs sidecars with names: a tagged sidecar's connection
+    threads carry its name, and its launches count under
+    ``"<name> <site>"`` (two sidecars share the engine's module).  Enter
+    before any daemon connects to a tagged sidecar."""
 
     SITES = (("sidecar sha1", engine_mod, "sha1_ragged_cuda"),
              ("sidecar sketch", engine_mod, "sketch_ragged_cuda"),
              ("verify sha1", sidecar_mod, "sha1_ragged_cuda"),
              ("client sha1", fingerprint_mod, "sha1_ragged_cuda"))
 
-    def __init__(self):
-        self.n = {name: 0 for name, _, _ in self.SITES}
+    def __init__(self, tags=()):
+        self.tags = list(tags)
+        names = [name for name, _, _ in self.SITES]
+        if self.tags:
+            names = [f"{tag} {name}" for _, tag in self.tags
+                     for name in names if name != "client sha1"]
+            names.append("client sha1")
+        self.n = dict.fromkeys(names, 0)
         self._lock = threading.Lock()
+        self._where = threading.local()
         self._saved = []
 
     def _wrap(self, name, fn):
@@ -1180,24 +1160,60 @@ class LaunchCounts:
             with self._lock:
                 before = fn.launches
                 out = fn(*args, **kw)
-                self.n[name] += fn.launches - before
+                tag = getattr(self._where, "tag", "")
+                key = f"{tag} {name}" if tag else name
+                self.n[key] = self.n.get(key, 0) + fn.launches - before
             return out
         return counted_call
+
+    def _tagged(self, tag, serve_conn):
+        def tagged_conn(conn):
+            self._where.tag = tag
+            return serve_conn(conn)
+        return tagged_conn
 
     def __enter__(self):
         for name, mod, attr in self.SITES:
             fn = getattr(mod, attr)
             self._saved.append((mod, attr, fn))
             setattr(mod, attr, self._wrap(name, fn))
+        for sidecar, tag in self.tags:
+            sidecar._serve_conn = self._tagged(tag, sidecar._serve_conn)
         return self
 
     def __exit__(self, *exc):
         for mod, attr, fn in self._saved:
             setattr(mod, attr, fn)
+        for sidecar, _ in self.tags:
+            del sidecar._serve_conn
 
     def reset(self):
         with self._lock:
             self.n = dict.fromkeys(self.n, 0)
+
+
+def start_sidecar(dev, path: str):
+    """The port's DedupSidecar on ``dev`` at ``path``, warmed up and
+    serving in a thread: ``(sidecar, thread, segments, warm-up s)``, with
+    ``segments`` the size of each segment its engine fingerprints."""
+    sidecar = DedupSidecar(path, config=DedupConfig(), device=dev)
+    t0 = time.monotonic()
+    sidecar.engine.warmup()
+    warm_s = time.monotonic() - t0
+    segments = []
+    fingerprint = sidecar.engine.fingerprint
+
+    def serve_segment(data, *args, **kw):       # one call per segment
+        segments.append(len(data))
+        return fingerprint(data, *args, **kw)
+
+    sidecar.engine.fingerprint = serve_segment
+    ready = threading.Event()
+    server = threading.Thread(target=sidecar.serve_forever,
+                              kwargs={"ready_event": ready}, daemon=True)
+    server.start()
+    check(ready.wait(timeout=60), "sidecar did not bind")
+    return sidecar, server, segments, warm_s
 
 
 def live_corpus() -> dict[str, bytes]:
@@ -1235,38 +1251,20 @@ def wait_for(pred, timeout: float):
     return pred()
 
 
-def phase_live(dev, card: str) -> tuple[int, int]:
+def phase_live(dev, card: str, files: dict[str, bytes], storaged: str
+               ) -> tuple[int, int]:
     """Phase 9; returns the SHA-1 and sketch launches of the live run."""
-    storaged, build_s = build_storaged()
-    print(f"phase 9: the live system on the card: {storaged} ready in "
-          f"{build_s:.1f} s")
-    files = live_corpus()
+    print(f"phase 9: the live system on the card: {storaged}")
     work = tempfile.mkdtemp(prefix="fdfs9")
     base = os.path.join(work, "st")
-    sidecar = DedupSidecar(os.path.join(work, "dedup.sock"),
-                           config=DedupConfig(), device=dev)
-    t0 = time.monotonic()
-    sidecar.engine.warmup()
-    print(f"  the port's sidecar on {dev} warmed up in "
-          f"{time.monotonic() - t0:.2f} s")
-    segments = []
-    fingerprint = sidecar.engine.fingerprint
-
-    def serve_segment(data, *args, **kw):       # one call per segment
-        segments.append(len(data))
-        return fingerprint(data, *args, **kw)
-
-    sidecar.engine.fingerprint = serve_segment
-    ready = threading.Event()
-    server = threading.Thread(target=sidecar.serve_forever,
-                              kwargs={"ready_event": ready}, daemon=True)
-    server.start()
-    check(ready.wait(timeout=60), "sidecar did not bind")
+    sidecar, server, segments, warm_s = start_sidecar(
+        dev, os.path.join(work, "dedup.sock"))
+    print(f"  the port's sidecar on {dev} warmed up in {warm_s:.2f} s")
     daemon = None
     try:
-        daemon = harness.start_storage(base, dedup_mode="sidecar",
-                                       dedup_sidecar=sidecar.socket_path,
-                                       extra=SCRUB_CONF)
+        daemon = native.start_storage(storaged, base, dedup_mode="sidecar",
+                                      dedup_sidecar=sidecar.socket_path,
+                                      extra=SCRUB_CONF)
         with LaunchCounts() as counts:
             out = drive_live(dev, card, files, base, daemon, sidecar,
                              counts, segments)
@@ -1420,6 +1418,294 @@ def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
             n["sidecar sketch"])
 
 
+# Phase 10: the tracker-routed cluster.  Two storages of one group on
+# their own loopback addresses (the tracker keys storages by address).
+CLUSTER_IPS = ("127.0.0.61", "127.0.0.62")
+# Beats every second; no admission ladder: under the pressure of a
+# 64 MB upload it sheds the peer's replication (background class) with
+# EBUSY, and the daemon's sync sender then skips that file for good
+# (native/storage/sync.cc, "rejected by peer ... skipping").
+CLUSTER_CONF = ("heart_beat_interval = 1\nstat_report_interval = 1\n"
+                "admission_control = 0")
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_subprocess(args: list[str]) -> subprocess.CompletedProcess:
+    """``python -m fastdfs_tpu_torch.cli`` with ``args`` in a process of
+    its own: no ``--device``, so it fingerprints on the card."""
+    return subprocess.run([sys.executable, "-m", "fastdfs_tpu_torch.cli",
+                           *args], cwd=REPO_ROOT, capture_output=True,
+                          text=True, timeout=600)
+
+
+def cli_in_process(args: list[str]) -> tuple[int, str, str]:
+    """``cli.main(args)`` here, so that its launches count: (exit code,
+    stdout, stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_mod.main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def missing_bytes(data: bytes, stored: set[str]) -> tuple[int, int]:
+    """(bytes, chunks) of ``data``'s chunks whose digest is not in
+    ``stored``: what a negotiated upload must ship."""
+    pairs = fingerprint_pairs(data, chunk_stream_np(data))
+    missing = [n for n, d in pairs if d.hex() not in stored]
+    return sum(missing), len(pairs)
+
+
+def phase_cluster(dev, card: str, files: dict[str, bytes], storaged: str,
+                  trackerd: str) -> tuple[int, int]:
+    """Phase 10; returns the SHA-1 and sketch launches of the cluster
+    run."""
+    print(f"phase 10: the tracker-routed cluster on the card: "
+          f"{os.path.basename(trackerd)} and two {os.path.basename(storaged)}"
+          f" in one group, each on its own port sidecar")
+    work = tempfile.mkdtemp(prefix="fdfs10")
+    paths = {}
+    for name, key in (("A", "A"), ("A2", "E"), ("D", "D")):
+        paths[name] = os.path.join(work, f"{name}.bin")
+        with open(paths[name], "wb") as fh:
+            fh.write(files[key])
+    data = {"A": files["A"], "A2": files["E"], "D": files["D"]}
+    sidecars, tracker, storages = [], None, []
+    try:
+        for i in range(2):
+            sidecars.append(start_sidecar(
+                dev, os.path.join(work, f"dedup{i + 1}.sock")))
+        print("  sidecars warmed up in "
+              + ", ".join(f"{w:.2f}" for _, _, _, w in sidecars) + " s")
+        tags = [(sc, f"sidecar {i + 1}")
+                for i, (sc, _, _, _) in enumerate(sidecars)]
+        with LaunchCounts(tags) as counts:
+            tracker = native.start_tracker(trackerd,
+                                           os.path.join(work, "tr"))
+            taddr = f"127.0.0.1:{tracker.port}"
+            for i, ip in enumerate(CLUSTER_IPS):
+                storages.append(native.start_storage(
+                    storaged, os.path.join(work, f"st{i + 1}"), ip=ip,
+                    trackers=[taddr], dedup_mode="sidecar",
+                    dedup_sidecar=sidecars[i][0].socket_path,
+                    extra=CLUSTER_CONF + "\n" + SCRUB_CONF))
+            bases = [os.path.join(work, f"st{i + 1}") for i in range(2)]
+            out = drive_cluster(dev, card, data, paths, taddr, tracker,
+                                storages, bases,
+                                [seg for _, _, seg, _ in sidecars], counts)
+    finally:
+        for daemon in storages:
+            daemon.stop()
+        if tracker is not None:
+            tracker.stop()
+        for sc, server, _, _ in sidecars:
+            sc.stop()
+            server.join(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    check(not any(server.is_alive() for _, server, _, _ in sidecars),
+          "a sidecar thread did not stop")
+    return out
+
+
+def drive_cluster(dev, card, data, paths, taddr, tracker, storages, bases,
+                  segments, counts) -> tuple[int, int]:
+    t = TrackerClient("127.0.0.1", tracker.port, 60.0)
+    check(bool(wait_for(lambda: (lambda g: bool(g) and g[0]["active"] == 2)(
+        t.list_groups()), timeout=60)), f"storages never ACTIVE: "
+          f"{t.list_groups()}")
+    cli = FdfsClient([taddr], timeout=600.0, device=dev)
+    addrs = [f"{ip}:{d.port}" for ip, d in zip(CLUSTER_IPS, storages)]
+
+    def warmed():
+        try:
+            return cli.upload_buffer(b"warmup " * 64, ext="txt")
+        except (OSError, ProtocolError, StatusError):
+            return None
+    check(bool(wait_for(warmed, timeout=30)), "the tracker routes no upload")
+
+    def stored() -> set[str]:
+        return set().union(*(harness.chunk_digests(b) for b in bases))
+
+    def replicated(fid):
+        """Both storages hold ``fid`` (the tracker's fetch list can name a
+        replica before its sync has written the file)."""
+        for ip, daemon in zip(CLUSTER_IPS, storages):
+            try:
+                with StorageClient(ip, daemon.port, timeout=60.0,
+                                   device=dev) as sc:
+                    sc.query_file_info(fid)
+            except StatusError as e:
+                if e.status != 2:
+                    raise
+                return False
+        return True
+
+    counts.reset()
+    for seg in segments:
+        seg.clear()
+    fids, wall, served = {}, {}, {}
+
+    def timed(name, fn):
+        before = [len(seg) for seg in segments]
+        t0 = time.monotonic()
+        out = fn()
+        wall[name] = (time.monotonic() - t0) * 1e3
+        served[name] = [len(seg) - b for seg, b in zip(segments, before)]
+        return out
+
+    # 1. The CLI, tracker-routed: a process of its own on the default
+    # device, then in this process (its launches count here).
+    want_a = missing_bytes(data["A"], stored())
+    proc = timed("A", lambda: cli_subprocess(["upload", taddr, "--dedup",
+                                              paths["A"]]))
+    check(proc.returncode == 0, f"cli upload --dedup A failed: "
+                                f"{proc.stderr[-2000:]}")
+    fids["A"] = proc.stdout.strip()
+    check(proc.stderr.strip() == f"wire: {want_a[0]}/{len(data['A'])} bytes "
+          "shipped", f"A: {proc.stderr.strip()!r}, expected {want_a[0]} "
+          "bytes shipped")
+    check(bool(wait_for(lambda: replicated(fids["A"]), timeout=120)),
+          "A never replicated")
+    want_a2 = missing_bytes(data["A2"], stored())
+    rc, out, wire_a2 = timed("A2", lambda: cli_in_process(
+        ["upload", taddr, "--dedup", paths["A2"]]))
+    check(rc == 0, f"cli upload --dedup A' failed: {wire_a2[-2000:]}")
+    fids["A2"] = out.strip()
+    wire_a2 = wire_a2.strip()
+    check(wire_a2 == f"wire: {want_a2[0]}/{len(data['A2'])} bytes shipped",
+          f"A': {wire_a2!r}, expected {want_a2[0]} bytes")
+    check(0 < want_a2[0] <= LIVE_TAIL + (2 << 16),
+          f"A' ships {want_a2[0]} bytes, more than its new tail")
+    client_sha1 = counts.n["client sha1"]
+    check(bool(wait_for(lambda: replicated(fids["A2"]), timeout=120)),
+          "A' never replicated")
+
+    # 2. A plain upload through the client on the card, then a traced
+    # one, and the stitched trace across the cluster.  Each upload is
+    # replicated before the next starts, so that a sidecar's segments
+    # during an upload are that upload's.
+    fids["D"] = timed("D", lambda: cli.upload_buffer(data["D"], ext="bin"))
+    check(bool(wait_for(lambda: replicated(fids["D"]), timeout=120)),
+          "D never replicated")
+    fids["At"], tracer = timed("At", lambda: traced_upload(
+        cli, data["A"], ext="bin"))
+    data["At"] = data["A"]
+    check(bool(wait_for(lambda: replicated(fids["At"]), timeout=120)),
+          "the traced upload of A never replicated")
+
+    def stitched():
+        spans, errors = collect_cluster_spans(cli)
+        check(errors == {}, f"collect_cluster_spans: {errors}")
+        mine = [s for s in spans + tracer.spans
+                if s.trace_id == tracer.trace_id]
+        nodes = {s.node.rsplit(":", 1)[0] for s in mine}
+        return mine if {"client", "tracker 127.0.0.1"} | {
+            f"storage {ip}" for ip in CLUSTER_IPS} <= nodes else None
+    spans = wait_for(stitched, timeout=30)
+    check(bool(spans), "the traced upload has no spans from the tracker and "
+                       "both storages")
+    roots = [s for s in spans if s.name == "client.upload"]
+    check(len(roots) == 1 and all(
+        s is roots[0] or s.parent_id for s in spans),
+        "the stitched trace is not one tree under client.upload")
+
+    # 3. Replication: every file byte-exact from both storages; a recipe
+    # on the storage that took it.
+    time.sleep(1.0)              # late sync work would show by now
+    final = [len(seg) for seg in segments]
+    recipes = {}
+    for name, fid in fids.items():
+        for i, (ip, daemon) in enumerate(zip(CLUSTER_IPS, storages)):
+            with StorageClient(ip, daemon.port, timeout=600.0,
+                               device=dev) as sc:
+                check(sc.download_to_buffer(fid) == data[name],
+                      f"{name}: the download from {ip} differs")
+        source = [i for i, n in enumerate(served[name]) if n]
+        check(sorted(served[name]) == [0, 1],
+              f"{name}: segments served per sidecar {served[name]}")
+        recipes[name] = [is_recipe(b, fid) for b in bases]
+        check(recipes[name][source[0]] and not is_flat(bases[source[0]],
+                                                       fid),
+              f"{name} ({fid}) is not a recipe on its source: the daemon "
+              f"failed open")
+    replica = [f - sum(served[n][i] for n in served)
+               for i, f in enumerate(final)]
+
+    # The kernels did the work: each sidecar one launch of each kernel
+    # per segment it served, the client one SHA-1 per negotiated upload
+    # made in this process.
+    n = dict(counts.n)
+    for i in range(2):
+        tag = f"sidecar {i + 1}"
+        check(all(x == SEGMENT for x in segments[i]),
+              f"{tag} served segments of {set(segments[i])} bytes")
+        check(n[f"{tag} sidecar sha1"] == final[i]
+              and n[f"{tag} sidecar sketch"] == final[i],
+              f"{tag}: {n} for {final[i]} segments")
+        check(n[f"{tag} verify sha1"] == 0, f"{tag} verified chunks: {n}")
+    check(client_sha1 == 1 and n["client sha1"] == 1,
+          f"{n['client sha1']} client SHA-1 launches for one negotiated "
+          f"upload in this process")
+    untagged = {k: v for k, v in n.items() if v and k.startswith(
+        ("sidecar sha1", "sidecar sketch", "verify sha1"))}
+    check(not untagged, f"launches outside both sidecars: {untagged}")
+    reindex = sum(sum(served[k]) for k in ("A", "A2"))
+
+    # 4. The monitor and the CLI's consoles on the card.
+    top = monitor_mod.gather_top(cli)
+    for addr in addrs:
+        node = top.nodes.get(f"storage {addr}")
+        check(node is not None and node.error == ""
+              and node.registry is not None, f"top: {addr} is not live: "
+              f"{node}")
+    check(not [k for k, v in top.nodes.items() if v.error],
+          f"top has error rows: {top.nodes}")
+    frame = monitor_mod.render_top(top, monitor_mod.top_rates(None, top), [])
+    consoles = {}
+    for args in (["group", taddr, "status"], ["health", taddr]):
+        rc, out, err = cli_in_process(["--device", "cuda", *args])
+        check(rc == 0 and "error" not in out + err,
+              f"cli {args[0]}: rc {rc}\n{out}\n{err}")
+        consoles[args[0]] = out
+    check(all(a in consoles["health"] for a in addrs),
+          f"cli health lacks a storage:\n{consoles['health']}")
+    cli.close()
+
+    print(f"  A by `python -m fastdfs_tpu_torch.cli upload --dedup` in its "
+          f"own process (the card by default): {proc.stderr.strip()}; A' by "
+          f"cli.main in this process: {wire_a2} ({want_a2[1]} chunks)")
+    label = {"A": "A", "A2": "A'", "D": "D", "At": "A traced"}
+    print(f"  every file downloads byte-exact from both storages; a recipe "
+          f"on its source; recipes on (storage 1, storage 2): "
+          + ", ".join(f"{label[k]} {v}" for k, v in recipes.items()))
+    print(f"  launches: client SHA-1 {n['client sha1']}; "
+          + "; ".join(f"sidecar {i + 1} SHA-1 "
+                      f"{n[f'sidecar {i + 1} sidecar sha1']}, sketch "
+                      f"{n[f'sidecar {i + 1} sidecar sketch']} for "
+                      f"{final[i]} segments" for i in range(2))
+          + f"; of these, reindex of the 2 negotiated uploads {reindex}, "
+          f"replicas fingerprinting synced files {replica} (sidecar 1, 2)")
+    print(f"  segments served per upload (sidecar 1, 2): "
+          + ", ".join(f"{label[k]} {v}" for k, v in served.items()))
+    print(f"  wall per {SEGMENT >> 20} MB upload, client clock ms: A (cli "
+          f"subprocess, with its start) {wall['A']:.1f}, A' (cli.main) "
+          f"{wall['A2']:.1f}, D (plain) {wall['D']:.1f}, A (traced plain) "
+          f"{wall['At']:.1f}  [{card}]")
+    print("  traced plain upload of A through the tracker (stitched "
+          "across the cluster):")
+    for line in render_timeline(spans, tracer.trace_id).splitlines():
+        print("    " + line)
+    print("  top, one frame:")
+    for line in frame.splitlines()[1:]:
+        print("    " + line)
+    for name in ("group", "health"):
+        print(f"  cli --device cuda {name}:")
+        for line in consoles[name].splitlines():
+            print("    " + line)
+    return (n["client sha1"] + sum(n[f"sidecar {i + 1} sidecar sha1"]
+                                   for i in range(2)),
+            sum(n[f"sidecar {i + 1} sidecar sketch"] for i in range(2)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -1460,13 +1746,22 @@ def main() -> int:
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
     marks.append(time.monotonic())
-    sha1_n, sketch_n = phase_live(dev, card)
+    storaged, trackerd, native_s = native.native_binaries()
+    print(f"native daemons: {storaged}, {trackerd} ready in {native_s:.1f} s")
+    files = live_corpus()
+    marks.append(time.monotonic())
+    sha1_n, sketch_n = phase_live(dev, card, files, storaged)
+    rec_sha1.launches += sha1_n
+    rec_sketch.launches += sketch_n
+    marks.append(time.monotonic())
+    sha1_n, sketch_n = phase_cluster(dev, card, files, storaged, trackerd)
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
     marks.append(time.monotonic())
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-9: " + ", ".join(
+          f"(phases 2-8, the daemons' build and corpus, phases 9-10: "
+          + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)
     print(json.dumps({"kernels": [rec_sha1.json(), rec_sketch.json()]}))

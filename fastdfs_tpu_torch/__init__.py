@@ -19,3 +19,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper takes its plain PyTorch twin.  Asking for
 CUDA where there is none raises: nothing falls back to the CPU.
 """
+
+__version__ = "0.1.0"
+
+FDFS_TPU_VERSION = __version__

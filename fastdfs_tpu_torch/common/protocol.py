@@ -7,11 +7,6 @@ client, the sidecar and ``trace.py`` use.  The reference module stays the
 contract: the C++ daemons in ``native/`` generate their opcode table from
 it (``native/gen_protocol.py``), and tests hold this copy equal to it,
 member for member and byte for byte.
-
-Left out until the modules that use them are ported: the storage-beat
-stat table (``BEAT_STAT_*``) and the wire-contract annotations
-(``NO_WIRE_BODY``, ``WIRE_GOLDENS``) that ``monitor.py``, ``cli.py`` and
-the generator read.
 """
 
 from __future__ import annotations
@@ -40,6 +35,48 @@ RECORD_SEPARATOR = b"\x01"
 FIELD_SEPARATOR = b"\x02"
 
 HEADER_SIZE = PROTO_PKG_LEN_SIZE + 2  # 8B len + 1B cmd + 1B status
+
+# ---------------------------------------------------------------------------
+# Storage-beat stat blob (reference: FDFSStorageStat in tracker_types.h,
+# shipped to the tracker on every TRACKER_PROTO_CMD_STORAGE_BEAT).
+#
+# The beat body carries BEAT_STAT_COUNT big-endian int64 slots after the
+# identity prefix; slot i is named BEAT_STAT_FIELDS[i].  The C++ daemons
+# compile against the generated mirror (protocol_gen.h kBeatStatNames),
+# so the tracker's JSON stat feed and the Python monitor agree on every
+# field by construction.  Slots 0-18 are the storage's restart-persisted
+# op counters (storage_stat.dat); 19+ are live values sampled at beat
+# time.  Append-only: new fields go at the end (the tracker accepts
+# shorter blobs from older storages, missing slots read 0).
+# ---------------------------------------------------------------------------
+
+BEAT_STAT_FIELDS = (
+    "total_upload", "success_upload",
+    "total_download", "success_download",
+    "total_delete", "success_delete",
+    "total_append", "success_append",
+    "total_set_meta", "success_set_meta",
+    "total_get_meta", "success_get_meta",
+    "total_query", "success_query",
+    "bytes_uploaded", "bytes_downloaded",
+    "dedup_hits", "dedup_bytes_saved",
+    "last_source_update",
+    "connections",
+    "refused_connections",
+    "sync_lag_s",
+    "sync_bytes_saved_wire",
+    "recovery_chunks_fetched",
+    "recovery_chunks_local",
+    "recovery_files",
+    "fetch_chunk_batches",
+    "dedup_chunk_misses",
+    "rebalance_files_moved",
+    "rebalance_bytes_moved",
+    "rebalance_files_pending",
+    "rebalance_errors",
+    "rebalance_done",
+)
+BEAT_STAT_COUNT = len(BEAT_STAT_FIELDS)
 
 # ---------------------------------------------------------------------------
 # Integrity-engine status blob (fastdfs_tpu extension; no reference
@@ -732,6 +769,65 @@ class StorageCmd(enum.IntEnum):
 
     RESP = 100
     ACTIVE_TEST = 111
+
+
+# ---------------------------------------------------------------------------
+# Wire-contract annotations, consumed by native/gen_protocol.py when it
+# emits native/protocol_manifest.json (the machine-readable contract
+# tools/fdfs_lint.py checks the tree against).
+#
+# NO_WIRE_BODY names opcodes whose request AND response bodies are empty
+# or pure status — nothing to pin with a golden.  Every other opcode
+# carries a structured body; WIRE_GOLDENS maps those covered by an
+# `fdfs_codec <name>` cross-language golden fixture.  An opcode with a
+# wire body and no golden must be allowlisted (with a reason) in
+# tools/fdfs_lint.py's golden-coverage check — adding an opcode without
+# deciding its golden story fails the linter by design.
+# ---------------------------------------------------------------------------
+
+NO_WIRE_BODY = frozenset({
+    "TrackerCmd.QUIT",            # empty body, no response
+    "TrackerCmd.RESP",            # pseudo-opcode: the response header itself
+    "TrackerCmd.ACTIVE_TEST",     # empty ping, status-only answer
+    "StorageCmd.RESP",
+    "StorageCmd.ACTIVE_TEST",
+    "StorageCmd.EC_KICK",         # empty body, status-only answer
+})
+
+WIRE_GOLDENS = {
+    "TrackerCmd.SERVER_CLUSTER_STAT": "stats-json",  # embeds beat-stat names
+    "TrackerCmd.TRACE_DUMP": "trace-json",
+    "TrackerCmd.STAT": "stats-json",
+    "TrackerCmd.EVENT_DUMP": "event-json",
+    "TrackerCmd.METRICS_HISTORY": "metrics-history",
+    "TrackerCmd.TRACE_CTX": "trace-ctx",
+    "StorageCmd.STAT": "stats-json",
+    "StorageCmd.TRACE_DUMP": "trace-json",
+    "StorageCmd.EVENT_DUMP": "event-json",
+    "StorageCmd.METRICS_HISTORY": "metrics-history",
+    "StorageCmd.HEAT_TOP": "heat-top",
+    "StorageCmd.TRACE_CTX": "trace-ctx",
+    "StorageCmd.SCRUB_STATUS": "scrub-status",
+    "StorageCmd.UPLOAD_RECIPE": "ingest-wire",
+    "StorageCmd.UPLOAD_CHUNKS": "ingest-wire",
+    "TrackerCmd.QUERY_PLACEMENT": "placement-wire",
+    "TrackerCmd.GROUP_DRAIN": "group-admin",
+    "TrackerCmd.GROUP_REACTIVATE": "group-admin",
+    "TrackerCmd.PROFILE_CTL": "profile-ctl",
+    "TrackerCmd.PROFILE_DUMP": "profile-json",
+    "StorageCmd.PROFILE_CTL": "profile-ctl",
+    "StorageCmd.PROFILE_DUMP": "profile-json",
+    "StorageCmd.EC_STATUS": "ec-status",
+    "StorageCmd.EC_RELEASE": "ec-stripe-layout",
+    "TrackerCmd.HEALTH_MATRIX": "health-matrix",
+    "TrackerCmd.QUERY_HOT_MAP": "hot-map",
+    "TrackerCmd.HOT_FANOUT_DONE": "hot-map",
+    "StorageCmd.HEALTH_STATUS": "health-status",
+    "StorageCmd.PRIORITY": "priority-frame",
+    "TrackerCmd.PRIORITY": "priority-frame",
+    "StorageCmd.ADMISSION_STATUS": "admission-json",
+    "TrackerCmd.ADMISSION_STATUS": "admission-json",
+}
 
 
 class Status(enum.IntEnum):

@@ -12,6 +12,16 @@ after every operation that could leave that range.  Public functions
 take and return ``uint32`` tensors; ``widen`` and ``narrow`` convert at
 that boundary.  Multiplications whose product could pass 2**63 go
 through ``mul32``, which splits one factor into 16-bit halves.
+
+The package re-exports the reference's op names (``fastdfs_tpu/ops``):
+``sha1_batch``, ``sha1_hex``, ``chunk_stream``, ``chunk_stream_ref``,
+``gear_hashes``, ``gear_hashes_ref``, ``select_cuts``, ``GEAR_TABLE``,
+``shingle_hashes``, ``survivor_segmin``, ``minhash_signature``,
+``minhash_batch`` and ``estimate_jaccard``.  They take and return torch
+tensors where the reference takes JAX arrays, and the plain twins run on
+the device their inputs lie on.  One signature differs: ``chunk_stream``
+takes ``device`` (``"cuda"`` unless the caller passes ``"cpu"``), where
+its device CDC pass runs.
 """
 
 from __future__ import annotations
@@ -205,3 +215,23 @@ def ragged_batches(seg: torch.Tensor, offsets: torch.Tensor,
                      if seg.shape[0] else
                      torch.zeros(inside.shape, dtype=torch.uint8, device=dev))
             yield rows, batch, ln
+
+
+# The reference's re-exports.  They come after the helpers above: every
+# submodule imports those from this module while it is still loading.
+from fastdfs_tpu_torch.ops.gear_cdc import (  # noqa: E402,F401
+    GEAR_TABLE,
+    gear_hashes,
+    gear_hashes_ref,
+    select_cuts,
+    chunk_stream,
+    chunk_stream_ref,
+)
+from fastdfs_tpu_torch.ops.sha1 import sha1_batch, sha1_hex  # noqa: E402,F401
+from fastdfs_tpu_torch.ops.minhash import (  # noqa: E402,F401
+    shingle_hashes,
+    survivor_segmin,
+    minhash_signature,
+    minhash_batch,
+    estimate_jaccard,
+)

@@ -1,0 +1,175 @@
+"""The storage and tracker daemons for the port's live tests and
+``chip_smoke.py``: paths to ``fdfs_storaged`` and ``fdfs_trackerd``.
+
+The checkout's ``native/build/`` serves when it holds both.  Otherwise
+both are built with plain g++ into ``native/build-smoke/`` (gitignored)
+from the source lists of ``tools/build_native_gxx.sh``, with
+``-include cstddef``: g++ 12 and later reject ``native/tracker/hotmap.cc``,
+which uses ``ptrdiff_t`` without ``<cstddef>``.  One g++ per source, all
+started together; about half a minute on 8 cores.  A file lock keeps parallel
+test workers from building at once, and a stamp of the sources' hash
+lets a later call reuse the build.
+
+This module returns paths and assigns nothing in ``tests/harness.py``:
+the reference's suites keep their own binaries.  ``start_tracker`` and
+``start_storage`` start a daemon from an explicit binary with the
+harness's configs.  ``chip_smoke.py`` loads this file by its path (a
+host may have another package named ``tests``), and this file loads
+``tests/harness.py`` the same way.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import glob
+import hashlib
+import importlib.util
+import os
+import re
+import subprocess
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE = os.path.join(REPO, "native")
+GXX_SCRIPT = os.path.join(REPO, "tools", "build_native_gxx.sh")
+SMOKE_BUILD = os.path.join(NATIVE, "build-smoke")
+FLAGS = ("-std=c++17", "-O2", "-I.", "-include", "cstddef")
+
+
+def _load_harness():
+    path = os.path.join(REPO, "tests", "harness.py")
+    spec = importlib.util.spec_from_file_location("fdfs_live_harness", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+harness = _load_harness()
+
+
+def _sources() -> dict[str, list[str]]:
+    """The ``srcs_common``, ``srcs_storage`` and ``srcs_tracker`` lists of
+    the g++ build script."""
+    with open(GXX_SCRIPT) as fh:
+        script = fh.read()
+    out = {}
+    for var in ("srcs_common", "srcs_storage", "srcs_tracker"):
+        m = re.search(var + r'="([^"]*)"', script)
+        if m is None:
+            raise RuntimeError(f"{GXX_SCRIPT} lists no {var}")
+        out[var] = m.group(1).split()
+    return out
+
+
+def _stamp() -> str:
+    """A hash of every native source and header and of the flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(NATIVE, "*", "*.[ch]*"))):
+        if os.path.isfile(path):
+            h.update(os.path.relpath(path, NATIVE).encode())
+            with open(path, "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()
+
+
+def _obj(src: str) -> str:
+    return os.path.join(SMOKE_BUILD, src.replace("/", "_")[:-3] + ".o")
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in ``native/`` together; raise on the first that
+    fails, with its output."""
+    procs = [(subprocess.Popen(cmd, cwd=NATIVE, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT), cmd)
+             for cmd in cmds]
+    failed = []
+    for proc, cmd in procs:
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log[-2000:]}")
+    if failed:
+        raise RuntimeError("native build failed:\n" + failed[0])
+
+
+def _build() -> None:
+    srcs = _sources()
+    compile_all = [["g++", *FLAGS, "-c", src, "-o", _obj(src)]
+                   for srcs_of in srcs.values() for src in srcs_of]
+    compile_all.append(["g++", *FLAGS, "-msha", "-mssse3", "-msse4.1", "-c",
+                        "common/sha1_ni.cc", "-o",
+                        _obj("common/sha1_ni.cc")])
+    _run(compile_all)
+    common = os.path.join(SMOKE_BUILD, "libfdfs_common.a")
+    storage = os.path.join(SMOKE_BUILD, "libfdfs_storage.a")
+    tracker = os.path.join(SMOKE_BUILD, "libfdfs_tracker.a")
+    common_objs = [_obj(s) for s in srcs["srcs_common"]]
+    common_objs.append(_obj("common/sha1_ni.cc"))
+    for lib, objs in ((common, common_objs),
+                      (storage, [_obj(s) for s in srcs["srcs_storage"]]),
+                      (tracker, [_obj(s) for s in srcs["srcs_tracker"]])):
+        if os.path.exists(lib):
+            os.unlink(lib)
+        _run([["ar", "rcs", lib, *objs]])
+    # -rdynamic as in the script: the daemons' profiler symbolizes frames
+    # through the dynamic symbol table.
+    link = ["g++", *FLAGS, "-rdynamic"]
+    _run([[*link, "storage/main.cc", storage, common, "-lpthread", "-o",
+           os.path.join(SMOKE_BUILD, "fdfs_storaged")],
+          [*link, "tracker/main.cc", tracker,
+           _obj("storage/admission.cc"), common, "-lpthread", "-o",
+           os.path.join(SMOKE_BUILD, "fdfs_trackerd")]])
+
+
+def native_binaries() -> tuple[str, str, float]:
+    """``(fdfs_storaged, fdfs_trackerd, seconds spent building)``: the
+    checkout's ``native/build/`` pair when it has both, else the smoke
+    build, built or rebuilt under a file lock when its stamp is stale."""
+    built = os.path.join(NATIVE, "build")
+    pair = (os.path.join(built, "fdfs_storaged"),
+            os.path.join(built, "fdfs_trackerd"))
+    if all(os.path.exists(p) for p in pair):
+        return pair[0], pair[1], 0.0
+    t0 = time.monotonic()
+    os.makedirs(SMOKE_BUILD, exist_ok=True)
+    pair = (os.path.join(SMOKE_BUILD, "fdfs_storaged"),
+            os.path.join(SMOKE_BUILD, "fdfs_trackerd"))
+    stamp_path = os.path.join(SMOKE_BUILD, "stamp")
+    with open(os.path.join(SMOKE_BUILD, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        want = _stamp()
+        try:
+            with open(stamp_path) as fh:
+                fresh = fh.read() == want
+        except OSError:
+            fresh = False
+        if not (fresh and all(os.path.exists(p) for p in pair)):
+            if os.path.exists(stamp_path):
+                os.unlink(stamp_path)
+            _build()
+            with open(stamp_path, "w") as fh:
+                fh.write(want)
+    return pair[0], pair[1], time.monotonic() - t0
+
+
+def start_tracker(trackerd: str, base: str, **kw):
+    """``fdfs_trackerd`` on a free localhost port, its base dir ``base``;
+    ``kw`` goes to ``harness.make_tracker_conf``."""
+    os.makedirs(base, exist_ok=True)
+    port = harness.free_port()
+    return harness.Daemon(trackerd, harness.make_tracker_conf(base, port,
+                                                              **kw), port)
+
+
+def start_storage(storaged: str, base: str, ip: str = "127.0.0.1",
+                  port: int | None = None, **kw):
+    """``fdfs_storaged`` on ``ip`` and a free (or the given) port, its
+    base dir ``base``; ``kw`` goes to ``harness.make_storage_conf``."""
+    os.makedirs(base, exist_ok=True)
+    port = port or harness.free_port()
+    conf = harness.make_storage_conf(base, port, ip=ip, **kw)
+    return harness.Daemon(storaged, conf, port, ip=ip)
+
+
+if __name__ == "__main__":
+    storaged, trackerd, seconds = native_binaries()
+    print(f"{storaged}\n{trackerd}\nbuilt in {seconds:.1f} s")
