@@ -18,7 +18,13 @@ before the last line):
    the card could take (the bound); an edge segment (lengths 0-8, 55-57,
    63-65 at every start offset mod 4, each followed by non-zero bytes,
    and a last chunk past max_size); one chunk as large as the segment;
-   and the padded ``(N, L)`` adapters at 256 x 2048.
+   and the padded ``(N, L)`` adapters at 256 x 2048.  Then the gear CDC
+   kernel's compacted form (``csrc/gear_cdc.cu``) against its plain twin
+   and the host scan: on the segment as the client stages it (timed),
+   below a non-power-of-two ``n``, and on an adversarial 4 MB buffer
+   (candidates planted in the first window and at the kernel's thread
+   and tile seams, and a dense run that overflows ``device_cuts``' k,
+   whose recovery must relaunch the kernel and cut as the host does).
 3. The main path through the socket: the port's DedupSidecar serves in a
    thread; a seeded 256 MB corpus (A; B = A with scattered edits; C = a
    copy of A; D unique), 64 MB per file, goes in as one
@@ -28,15 +34,17 @@ before the last line):
    DEDUP_VERIFY batch with one corrupted chunk.  Every digest is checked
    against hashlib, the file signatures against the plain twins, the
    dedup / near-dup / verify verdicts, and that each 64 MB request
-   launched each kernel exactly once (verify: one SHA-1 launch).
+   launched each kernel exactly once (verify: one SHA-1 launch; the gear
+   kernel for D only).
 4. Where one segment's engine time goes: a torch.profiler pass over
    ``DedupEngine.fingerprint``, device time by kernel and the idle share.
 5. The client's upload fingerprint: ``client.fingerprint_buffer`` on the
    card over corpus file A and a second seeded payload, both exactly
    2^26 bytes (so the device CDC's power-of-two buffer has no slack of
-   its own), equal to ``chunk_stream_np`` plus hashlib, one SHA-1 launch
-   per call; the median wall time of 5 calls on A, the SHA-1 kernel's
-   share of it, and the device CDC's time, launches and bound.
+   its own), equal to ``chunk_stream_np`` plus hashlib, one SHA-1 and
+   one gear launch per call; the median wall time of 5 calls on A, the
+   SHA-1 kernel's share of it, and the gear kernel's time beside its
+   plain twin's (the eager pass it replaced) and its bound.
 6. Streaming: phase 2's segment as padded ``(256, 65536)`` batches
    through ``sha1_batch_cuda`` with ``ops.streaming.stream_batches``, in
    order and equal to direct calls and hashlib, timed at depth 1 and 2.
@@ -52,8 +60,12 @@ before the last line):
    ragged sketch kernel and NumPy's dense score; the engine's fan-out
    over 2 and 4 ranks against ``fan_out=1``; the fingerprint step over 1
    and 2 ranks against the kernels; ``entry()`` and
-   ``dryrun_multichip(8)``.  Times of both steps, the index query and the
-   stage-1 CDC beside their bounds.
+   ``dryrun_multichip(8)``.  The gear kernel's dense form on the streams
+   as the 8-rank step splits them, with their halos, and the index kernel
+   on the step's queries x 65,536 rows and on small odd shapes, against
+   their plain twins, bit for bit.  Times of both steps, and of the
+   stage-1 CDC and the index query on their kernels beside their plain
+   twins and bounds.
 9. The live system: ``fdfs_storaged`` (built with ``fdfs_trackerd`` if
    the checkout has neither, through ``tests/torch_native.py``) with
    ``dedup_mode = sidecar`` on the port's
@@ -88,10 +100,13 @@ before the last line):
 
 The kernels' launch counts are those of the main-path runs in phases 3,
 5, 6, 8, 9 and 10 (each counted from 0 just before its run); launches made only
-to time or compare a kernel are not counted.  The second-to-last line is a
-JSON object with one entry per kernel; the last is ``{"ok": true,
-"device": {...}}``.  Without a CUDA card the script exits non-zero and
-prints no result.
+to time or compare a kernel are not counted.  Those runs must call no
+plain twin on a CUDA tensor (``gear_window.cuda_calls`` and
+``index_best.cuda_calls`` stay 0).  The second-to-last line is a JSON
+object with one entry per kernel (the gear kernel's two forms as two
+entries; the three that replace jitted XLA, not a Pallas kernel, say so
+in ``replaces_kind``); the last is ``{"ok": true, "device": {...}}``.
+Without a CUDA card the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -130,22 +145,26 @@ from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.entry import dryrun_multichip, entry
 from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, _build, minhash, rs_code,
                                    sha1, widen)
+from fastdfs_tpu_torch.ops.cuda_gear import (block_candidates_cuda,
+                                             gear_candidates_cuda)
+from fastdfs_tpu_torch.ops import gear_cdc as gear_cdc_mod
+from fastdfs_tpu_torch.ops.cuda_index import index_best, index_best_cuda
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import (GEAR_TABLE, candidate_mask,
+from fastdfs_tpu_torch.ops.gear_cdc import (candidate_mask, chunk_stream,
                                             chunk_stream_np, device_cuts,
-                                            gear_candidates, gear_hashes,
+                                            gear_candidates,
+                                            gear_candidates_np, gear_hashes,
                                             gear_hashes_np, gear_values,
-                                            upload_padded)
+                                            gear_window, upload_padded)
 from fastdfs_tpu_torch.ops.streaming import stream_batches
 from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
                                         make_fingerprint_step,
                                         make_ingest_step, make_mesh)
-from fastdfs_tpu_torch.parallel.ingest_step import (HALO, block_candidates,
-                                                    index_best)
+from fastdfs_tpu_torch.parallel.ingest_step import HALO, block_candidates
 from fastdfs_tpu_torch.sidecar import DedupSidecar
 from fastdfs_tpu_torch.tools.timing import card_line, median_ms, once_ms
 from fastdfs_tpu_torch.trace import (Tracer, collect_cluster_spans,
@@ -166,6 +185,7 @@ def _load_native():
 
 native = _load_native()
 harness = native.harness
+dense_pair, plant_candidate = native.dense_pair, native.plant_candidate
 
 SEED = 20261016
 SEGMENT = 64 << 20                     # storage.conf dedup_segment_bytes
@@ -209,15 +229,17 @@ STAGE4_OPS_PER_SURVIVOR_PERM = 2
 SHA1_CHAIN_INSTR_PER_ROUND = 2
 ALU_LATENCY_CYCLES = 4
 # Device code that is not a TPU kernel (plain PyTorch in the port), with
-# the fewest sm_90a integer instructions its work needs:
-# - Gear CDC per byte position: one PRMT to take the byte, the inline
-#   fmix32 table value (one IADD3 for b + 1, three xor-shifts of SHF and
-#   LOP3, two IMAD), one LEA rolling h = (h << 1) + g, one LOP3 for the
-#   candidate test (predicate out).  1 + 9 + 1 + 1 = 12.
+# the fewest sm_90a integer instructions its work needs; a lookup in a
+# table in shared memory counts as one instruction (LDS):
+# - Gear CDC per byte position: one PRMT to take the byte, one LDS of
+#   its value in the 256-entry gear table, one LEA rolling
+#   h = (h << 1) + g, one LOP3 for the candidate test (predicate out).
+#   4.  (The kernel computes the table value inline, fmix32 of b + 1 in
+#   about 9 instructions: that is its design, not the function's need.)
 # - GF(2^8) matmul per output byte and shard column: one table lookup
 #   (LDS from a 64 KiB table in shared memory) and a quarter of a LOP3
 #   (the xor works on four packed bytes).  1.25.
-CDC_OPS_PER_POSITION = 12
+CDC_OPS_PER_POSITION = 4
 GF_OPS_PER_PRODUCT = 1.25
 
 _I64 = struct.Struct(">q")
@@ -257,6 +279,24 @@ def cdc_bound(n: int, k: int) -> tuple[float, str]:
     and k int64 candidate slots written, against CDC_OPS_PER_POSITION."""
     t_bytes = float(n + 8 * k) / HBM_BYTES_PER_S
     t_ops = float(n) * CDC_OPS_PER_POSITION / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def block_cdc_bound(rows: int, length: int) -> tuple[float, str]:
+    """(ms, by) of the dense CDC pass over ``rows`` rows of ``length``
+    bytes: each byte and the 31 int64 halo values of a row read once, one
+    bool written a position, against CDC_OPS_PER_POSITION."""
+    t_bytes = float(rows * (2 * length + 8 * HALO)) / HBM_BYTES_PER_S
+    t_ops = float(rows * length) * CDC_OPS_PER_POSITION / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def index_bound(n: int, m: int, p: int) -> tuple[float, str]:
+    """(ms, by) of the index query of n queries against m rows of p
+    lanes: each signature word read once and n floats written, against
+    two instructions (compare, add) per (query, row, lane)."""
+    t_bytes = float(4 * (n + m) * p + 4 * n) / HBM_BYTES_PER_S
+    t_ops = float(2 * n * m * p) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -301,19 +341,44 @@ def sketch_bound(lens: np.ndarray, survivors: int) -> tuple[float, str]:
 
 
 class KernelRecord:
-    def __init__(self, name, source, replaces):
+    """One kernel's entry of the ``kernels`` line.  ``xla`` marks a
+    kernel whose reference is a jitted XLA function, not a Pallas
+    kernel."""
+
+    def __init__(self, name, source, replaces, xla=False):
         self.name, self.source, self.replaces = name, source, replaces
+        self.xla = xla
         self.ms = self.plain_ms = self.bound_ms = 0.0
         self.bound_by = ""
         self.max_abs_err = 0
         self.launches = 0
 
     def json(self):
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "launches": self.launches,
-                "max_abs_err": self.max_abs_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": self.bound_by, "library_ms": None}
+        out = {"name": self.name, "route": "cuda", "source": self.source,
+               "replaces": self.replaces, "launches": self.launches,
+               "max_abs_err": self.max_abs_err, "ms": self.ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": self.bound_by, "library_ms": None}
+        if self.xla:
+            out["replaces_kind"] = "jax.jit (XLA) in the reference, not a " \
+                                   "Pallas kernel"
+        return out
+
+
+# The plain twins' calls on a CUDA tensor: every eager gear pass goes
+# through gear_window, the plain index query is index_best.  The card's
+# paths make none.
+PLAIN_TWINS = (gear_window, index_best)
+
+
+def reset_plain() -> None:
+    for f in PLAIN_TWINS:
+        f.cuda_calls = 0
+
+
+def check_no_plain(what: str) -> None:
+    calls = {f.__name__: f.cuda_calls for f in PLAIN_TWINS if f.cuda_calls}
+    check(not calls, f"{what}: plain twins ran on the card: {calls}")
 
 
 def on_card(dev, seg: bytes, offsets, lens):
@@ -436,10 +501,93 @@ def check_padded_adapters(dev, rng) -> None:
     print("  padded (256, 2048) adapters of both kernels: bit-exact")
 
 
-def phase_kernels(dev, rec_sha1, rec_sketch) -> tuple[bytes, list[int]]:
+def check_gear(rec, what: str, buf: torch.Tensor, n: int, bits: int, k: int
+               ) -> int:
+    """The gear kernel's compacted form on one card buffer against its
+    plain twin and the host scan, bit for bit; returns the count."""
+    out = gear_candidates_cuda(buf, n, bits, k)
+    plain = gear_candidates(buf, n, bits, k)
+    pos, count, plain, plain_count = out[:k], out[k], plain[:k], plain[k]
+    err = int((pos - plain).abs().max()) if k else 0
+    rec.max_abs_err = max(rec.max_abs_err, err,
+                          abs(int(count) - int(plain_count)))
+    check(err == 0 and int(count) == int(plain_count),
+          f"gear kernel != plain twin on the {what}")
+    host = gear_candidates_np(buf[:n].cpu().numpy(), bits)
+    got = pos.cpu().numpy()
+    check(int(count) == len(host) and np.array_equal(got[:len(host)],
+                                                     host[:k])
+          and (got[len(host):] == buf.shape[0]).all(),
+          f"gear kernel != the host scan on the {what}")
+    return int(count)
+
+
+def check_gear_kernel(dev, seg: bytes, rec) -> None:
+    """The gear kernel's compacted form on phase 2's segment as the
+    client stages it (timed), below a non-power-of-two n, and on an
+    adversarial buffer: candidates planted in the first window and at
+    the kernel's thread and tile seams, and a run dense enough to
+    overflow ``device_cuts``' k, recovered through the kernel."""
+    bits = DedupConfig().avg_bits
+    _, staged = upload_padded(seg, dev, slack=SEGMENT_SLACK)
+    buf = staged[:SEGMENT]
+    k = max(SEGMENT >> (bits - 2), 256)                # chunk_stream's k
+    count = check_gear(rec, f"{SEGMENT >> 20} MB segment", buf, SEGMENT,
+                       bits, k)
+    rec.ms = median_ms(lambda: gear_candidates_cuda(buf, SEGMENT, bits, k))
+    rec.plain_ms = median_ms(lambda: gear_candidates(buf, SEGMENT, bits, k),
+                             3)
+    rec.bound_ms, rec.bound_by = cdc_bound(SEGMENT, k)
+    odd = SEGMENT - 12345
+    odd_count = check_gear(rec, "segment below a non-power-of-two n", buf,
+                           odd, bits, k)
+
+    rng = np.random.default_rng(SEED + 10)
+    size = 4 << 20
+    adv = rng.integers(0, 256, size, dtype=np.uint8)
+    planted = list(range(1, 32, 2))
+    for j in range(1, 9):
+        planted += [64 * j - 1, 64 * j + 1]           # thread runs
+    for j in range(1, 9):
+        planted += [16384 * j + d for d in (-3, -1, 1, 3)]  # tiles
+    for p in planted:
+        plant_candidate(adv, p, bits)
+    x, y = dense_pair(bits)
+    adv[1 << 20:(1 << 20) + (64 << 10)] = np.tile(np.array([x, y], np.uint8),
+                                                  32 << 10)
+    host = gear_candidates_np(adv, bits)
+    check(set(planted) <= set(host.tolist()), "a planted position is not a "
+          "candidate of the adversarial buffer")
+    d_adv = torch.from_numpy(adv).to(dev)
+    kk = max(size >> (bits - 2), 256)
+    full = check_gear(rec, "adversarial buffer, k short", d_adv, size, bits,
+                      kk)
+    check(full > kk, f"the dense run left {full} candidates, not past {kk}")
+    check_gear(rec, "adversarial buffer, k = count", d_adv, size, bits, full)
+    before = gear_candidates_cuda.launches
+    reset_plain()
+    cuts = chunk_stream(adv.tobytes(), device=dev)
+    check(cuts == chunk_stream_np(adv.tobytes()),
+          "device CDC != chunk_stream_np on the adversarial buffer")
+    check(gear_candidates_cuda.launches == before + 2,
+          f"overflow recovery made {gear_candidates_cuda.launches - before} "
+          "gear launches, not 2")
+    check_no_plain("overflow recovery")
+    print(f"  gear kernel (compacted) on the {SEGMENT >> 20} MB segment: "
+          f"{count} candidates, {rec.ms:.4f} ms (plain {rec.plain_ms:.2f}, "
+          f"bound {rec.bound_ms:.4f} by {rec.bound_by}); below n = {odd}: "
+          f"{odd_count}; adversarial {size >> 20} MB buffer ({len(planted)} "
+          f"planted at the first window and the thread and tile seams, a "
+          f"64 KiB dense run): {full} candidates past k = {kk}, recovered "
+          f"by a second launch with k = {full}; cuts == chunk_stream_np; "
+          f"bit-exact")
+
+
+def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear
+                  ) -> tuple[bytes, list[int]]:
     rng = np.random.default_rng(SEED)
-    print("phase 2: ragged kernels vs plain twins on the card (ms = one "
-          "launch over the whole segment; bound = least time for its work)")
+    print("phase 2: kernels vs plain twins on the card (ms = one launch "
+          "over the whole segment; bound = least time for its work)")
     seg = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
     cuts = chunk_stream_np(seg)
     offsets = [0] + cuts[:-1]
@@ -451,6 +599,7 @@ def phase_kernels(dev, rec_sha1, rec_sketch) -> tuple[bytes, list[int]]:
                   rec_sketch, timed=False)
     check_whole_segment_chunk(dev, rng)
     check_padded_adapters(dev, rng)
+    check_gear_kernel(dev, seg, rec_gear)
     return seg, cuts
 
 
@@ -511,7 +660,7 @@ def plain_file_signature(dev, data: np.ndarray, spans) -> np.ndarray:
     return i64(sig).min(axis=0)
 
 
-def phase_socket(dev, card: str) -> tuple[int, int]:
+def phase_socket(dev, card: str) -> tuple[int, int, int]:
     C = protocol.StorageCmd
     rng = np.random.default_rng(SEED + 1)
     a = rng.integers(0, 256, SEGMENT, dtype=np.uint8)
@@ -540,8 +689,11 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
     check(ready.wait(timeout=60), "sidecar did not bind")
     client = Client(sidecar.socket_path)
     try:
-        sha1_ragged_cuda.launches = 0
-        sketch_ragged_cuda.launches = 0
+        wrappers = (sha1_ragged_cuda, sketch_ragged_cuda,
+                    gear_candidates_cuda)
+        for f in wrappers:
+            f.launches = 0
+        reset_plain()
         latency = {}
         engine_ms = {}
         per_request = {}
@@ -557,13 +709,13 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
                         + _I64.pack(len(cuts[name]))
                         + b"".join(_I64.pack(x) for x in cuts[name]) + data)
             before = engine_us(client)
-            counts = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
+            counts = [f.launches for f in wrappers]
             t0 = time.monotonic()
             status, resp = client.call(cmd, body)
             latency[name] = time.monotonic() - t0
             engine_ms[name] = (engine_us(client) - before) / 1e3
-            per_request[name] = (sha1_ragged_cuda.launches - counts[0],
-                                 sketch_ragged_cuda.launches - counts[1])
+            per_request[name] = tuple(f.launches - c
+                                      for f, c in zip(wrappers, counts))
             check(status == 0, f"fingerprint {name}: status {status}")
             answers[name] = parse_fingerprint(resp)
             if name == "C":
@@ -587,13 +739,14 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
         payloads[5] = bytes([payloads[5][0] ^ 0xFF]) + payloads[5][1:]
         body = _I64.pack(32) + b"".join(
             _I64.pack(len(p)) + dg for p, dg in zip(payloads, digests[:32]))
-        counts = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
+        counts = [f.launches for f in wrappers]
         status, mask = client.call(C.DEDUP_VERIFY, body + b"".join(payloads))
         check(status == 0 and mask == bytes(5) + b"\x01" + bytes(26),
               f"verify flagged {mask!r} (status {status})")
-        per_request["verify"] = (sha1_ragged_cuda.launches - counts[0],
-                                 sketch_ragged_cuda.launches - counts[1])
-        launches = (sha1_ragged_cuda.launches, sketch_ragged_cuda.launches)
+        per_request["verify"] = tuple(f.launches - c
+                                      for f, c in zip(wrappers, counts))
+        launches = tuple(f.launches for f in wrappers)
+        check_no_plain("the socket phase")
     finally:
         client.close()
         sidecar.stop()
@@ -638,12 +791,16 @@ def phase_socket(dev, card: str) -> tuple[int, int]:
           f"{cut_mb / latency['D']:.3f} GB/s  "
           f"[{card}]")
     print(f"  kernel launches during the socket phase: sha1 {launches[0]}, "
-          f"sketch {launches[1]}; per request (sha1/sketch): "
-          + ", ".join(f"{k} {v[0]}/{v[1]}" for k, v in per_request.items()))
+          f"sketch {launches[1]}, gear {launches[2]}; per request "
+          "(sha1/sketch/gear): "
+          + ", ".join(f"{k} {v[0]}/{v[1]}/{v[2]}"
+                      for k, v in per_request.items())
+          + "; no plain twin on the card")
     for name in "ABCD":
-        check(per_request[name] == (1, 1),
-              f"{name}: {per_request[name]} launches, not one of each kernel")
-    check(per_request["verify"] == (1, 0), "verify: not one sha1 launch")
+        want = (1, 1, 1 if name == "D" else 0)
+        check(per_request[name] == want,
+              f"{name}: {per_request[name]} launches, not {want}")
+    check(per_request["verify"] == (1, 0, 0), "verify: not one sha1 launch")
     return launches
 
 
@@ -694,9 +851,9 @@ def fingerprint_pairs(data: bytes, cuts: list[int]) -> list[tuple[int, bytes]]:
             for a, b in zip([0] + cuts[:-1], cuts)]
 
 
-def phase_client(dev, card: str) -> int:
-    """The client's upload fingerprint on the card; returns the SHA-1
-    launches of its main-path calls."""
+def phase_client(dev, card: str) -> tuple[int, int]:
+    """The client's upload fingerprint on the card; returns the SHA-1 and
+    gear launches of its main-path calls."""
     # Corpus file A of phase 3 (the first draw of its generator), and a
     # second payload of the same 2^26 bytes: seeded random bytes with a
     # 1 MB run of one repeated 4 KiB block every 8 MB, so chunks cut at
@@ -712,23 +869,29 @@ def phase_client(dev, card: str) -> int:
     print(f"phase 5: client fingerprint_buffer on the card, two payloads "
           f"of exactly 2^{SEGMENT.bit_length() - 1} bytes (no slack of the "
           f"CDC buffer's own)")
-    sha1_ragged_cuda.launches = 0
+    wrappers = (sha1_ragged_cuda, gear_candidates_cuda)
+    for f in wrappers:
+        f.launches = 0
+    reset_plain()
     got = {}
     for name, data in payloads.items():
-        before = sha1_ragged_cuda.launches
+        before = [f.launches for f in wrappers]
         got[name] = fingerprint_buffer(data, device=dev)
-        check(sha1_ragged_cuda.launches == before + 1,
-              f"{name}: fingerprint_buffer did not launch SHA-1 once")
+        check([f.launches - b for f, b in zip(wrappers, before)] == [1, 1],
+              f"{name}: fingerprint_buffer did not launch SHA-1 and the "
+              "gear kernel once each")
     walls = []
     for _ in range(5):
-        before = sha1_ragged_cuda.launches
+        before = [f.launches for f in wrappers]
         t0 = time.monotonic()
         fps = fingerprint_buffer(payloads["A"], device=dev)
         walls.append((time.monotonic() - t0) * 1e3)
-        check(sha1_ragged_cuda.launches == before + 1,
-              "A: fingerprint_buffer did not launch SHA-1 once")
+        check([f.launches - b for f, b in zip(wrappers, before)] == [1, 1],
+              "A: fingerprint_buffer did not launch SHA-1 and the gear "
+              "kernel once each")
         check(fps == got["A"], "A: fingerprints differ between calls")
-    launches = sha1_ragged_cuda.launches
+    launches = tuple(f.launches for f in wrappers)
+    check_no_plain("the client's fingerprint")
 
     for name, data in payloads.items():
         cuts = chunk_stream_np(data)
@@ -738,10 +901,12 @@ def phase_client(dev, card: str) -> int:
         print(f"  {name}: {len(cuts)} chunks, "
               f"{len(set(d for _, d in want))} distinct digests, longest "
               f"{max(n for n, _ in want)} B; == chunk_stream_np + hashlib, "
-              f"one SHA-1 launch per call")
+              f"one SHA-1 and one gear launch per call, no plain twin on "
+              f"the card")
 
     # The SHA-1 kernel alone on A's chunk table, and the device CDC pass
-    # alone on A's staged buffer (CUDA-event medians, not counted).
+    # alone on A's staged buffer, the gear kernel beside its plain twin
+    # (CUDA-event medians, not counted).
     data = payloads["A"]
     cuts = chunk_stream_np(data)
     offsets = [0] + cuts[:-1]
@@ -753,27 +918,34 @@ def phase_client(dev, card: str) -> int:
           "device CDC != chunk_stream_np on A")
     bits = DedupConfig().avg_bits
     k = max(SEGMENT >> (bits - 2), 256)              # chunk_stream's k
-    cdc_ms = median_ms(lambda: gear_candidates(staged[:SEGMENT], SEGMENT,
-                                               bits, k))
+    cdc_ms = median_ms(lambda: gear_candidates_cuda(staged[:SEGMENT],
+                                                    SEGMENT, bits, k))
+    plain_ms = median_ms(lambda: gear_candidates(staged[:SEGMENT], SEGMENT,
+                                                 bits, k), 3)
     cdc_bound_ms, cdc_by = cdc_bound(SEGMENT, k)
     wall_ms, kernels = device_profile(lambda: fingerprint_buffer(data,
                                                                 device=dev))
-    cdc = [(us, c) for key, (us, c) in kernels.items()
-           if "sha1_ragged_kernel" not in key and not is_copy(key)]
+    cdc = [(us, c) for key, (us, c) in kernels.items() if "gear_" in key]
+    other = [(us, c) for key, (us, c) in kernels.items()
+             if "sha1_ragged_kernel" not in key and "gear_" not in key
+             and not is_copy(key)]
     cdc_launches = sum(c for _, c in cdc)
     busy = {"sha1 kernel": sum(us for key, (us, _) in kernels.items()
                                if "sha1_ragged_kernel" in key),
-            "CDC ops": sum(us for us, _ in cdc),
+            "gear kernel": sum(us for us, _ in cdc),
+            "other ops": sum(us for us, _ in other),
             "copies": sum(us for key, (us, _) in kernels.items()
                           if is_copy(key))}
     wall = statistics.median(walls)
     print(f"  fingerprint_buffer(A) wall, median of 5: {wall:.1f} ms "
           f"(all: {', '.join(f'{w:.1f}' for w in walls)}); SHA-1 kernel "
           f"{sha1_ms:.4f} ms, {sha1_ms / wall:.4f} of it  [{card}]")
-    print(f"  device CDC (gear_candidates) on A: {cdc_ms:.4f} ms, "
-          f"{cdc_launches} device kernels per fingerprint_buffer call "
-          f"besides SHA-1 and copies; bound {cdc_bound_ms:.4f} ms by "
-          f"{cdc_by}  [{card}]")
+    print(f"  device CDC on A: gear kernel {cdc_ms:.4f} ms, its plain twin "
+          f"(the eager pass before) {plain_ms:.4f} ms; one gear launch per "
+          f"fingerprint_buffer call ({cdc_launches} gear device kernels: "
+          f"count, scan, write; {sum(c for _, c in other)} other device "
+          f"kernels besides SHA-1 and copies); bound {cdc_bound_ms:.4f} ms "
+          f"by {cdc_by}  [{card}]")
     busy_ms = sum(busy.values()) / 1e3
     print(f"  one call under torch.profiler: wall {wall_ms:.1f} ms; device "
           + ", ".join(f"{name} {us / 1e3:.3f} ms" for name, us in busy.items())
@@ -816,6 +988,7 @@ def phase_streaming(dev, card: str, seg: bytes, cuts: list[int]) -> int:
               for i, (o, e) in enumerate(zip(offsets, cuts))),
           "direct sha1_batch_cuda != hashlib")
     sha1_batch_cuda.launches = 0
+    reset_plain()
     times = []
     for depth in (1, 2, 2, 1):
         torch.cuda.synchronize()
@@ -828,6 +1001,7 @@ def phase_streaming(dev, card: str, seg: bytes, cuts: list[int]) -> int:
               f"stream_batches at depth {depth} != direct calls")
     launches = sha1_batch_cuda.launches
     check(launches == 4 * nb, f"{launches} SHA-1 launches, not {4 * nb}")
+    check_no_plain("streaming")
     print(f"  in order and == direct calls == hashlib; wall ms (depth): "
           + ", ".join(f"{t:.1f} ({d})" for d, t in times)
           + f"; {host.nbytes >> 20} MB of padded batches each  [{card}]")
@@ -839,6 +1013,7 @@ def phase_rs(dev, card: str) -> None:
     stripe = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
     print(f"phase 7: Reed-Solomon on the card, a seeded {SEGMENT >> 20} MB "
           f"stripe (ms: CUDA-event median of 10 calls)")
+    reset_plain()
     for k, m in ((4, 2), (10, 4), (32, 8)):
         shards = rs_code.split_stripe(stripe, k)
         length = shards.shape[1]
@@ -865,34 +1040,28 @@ def phase_rs(dev, card: str) -> None:
               f"{enc_ms:.4f} ms ({launches} device kernels; bound "
               f"{enc_bound:.4f} by {enc_by}), rebuild {dec_ms:.4f} ms "
               f"(bound {dec_bound:.4f} by {dec_by})  [{card}]")
+    check_no_plain("Reed-Solomon")
 
 
 # Every kernel wrapper's launch counter, and which kernel each launches.
 SHA1_WRAPPERS = (sha1_ragged_cuda, sha1_batch_cuda)
 SKETCH_WRAPPERS = (sketch_ragged_cuda, survivor_ragged_cuda,
                    survivor_segmin_cuda, minhash_batch_cuda)
+WRAPPERS = SHA1_WRAPPERS + SKETCH_WRAPPERS + (
+    gear_candidates_cuda, block_candidates_cuda, index_best_cuda)
 
 
 def counted(fn):
     """``(fn(), launches)``: every counter set to 0 just before the call
-    and read just after it, as ``{wrapper name: launches}``."""
-    for f in SHA1_WRAPPERS + SKETCH_WRAPPERS:
+    and read just after it, as ``{wrapper name: launches}``; the call
+    must run no plain twin on the card."""
+    for f in WRAPPERS:
         f.launches = 0
+    reset_plain()
     out = fn()
     torch.cuda.synchronize()
-    return out, {f.__name__: f.launches
-                 for f in SHA1_WRAPPERS + SKETCH_WRAPPERS if f.launches}
-
-
-def plant_candidate(buf: np.ndarray, p: int, avg_bits: int) -> None:
-    """Set ``buf[p - 1]`` and ``buf[p]`` so that position ``p`` is a cut
-    candidate of the whole stream: the low ``avg_bits`` bits of the gear
-    hash at ``p`` depend only on its last ``avg_bits`` bytes."""
-    g = GEAR_TABLE.astype(np.int64)
-    rest = sum(int(g[buf[p - k]]) << k for k in range(2, avg_bits)
-               if p - k >= 0)
-    low = (g[:, None] + (g[None, :] << 1) + rest) & ((1 << avg_bits) - 1)
-    buf[p], buf[p - 1] = np.argwhere(low == 0)[0]
+    check_no_plain("a counted main-path run")
+    return out, {f.__name__: f.launches for f in WRAPPERS if f.launches}
 
 
 def padded_rows(stream: np.ndarray, cuts: list[int], dp: int):
@@ -916,7 +1085,8 @@ def plain_signatures(dev, stream: torch.Tensor, cuts: list[int]) -> np.ndarray:
     return sig.view(torch.int32).cpu().numpy().view(np.uint32)
 
 
-def check_ingest_step(dev, card: str, total: dict) -> None:
+def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index
+                      ) -> None:
     """The ingest step over a (2, 2, 2) mesh of virtual ranks and over one
     rank, at full width: two 64 MB streams, one stream's chunks as padded
     rows, a 65,536-row index."""
@@ -961,9 +1131,11 @@ def check_ingest_step(dev, card: str, total: dict) -> None:
     for launches in (n8, n1):
         for name, k in launches.items():
             total[name] = total.get(name, 0) + k
-    check(n8 == {"sha1_batch_cuda": RANKS, "survivor_segmin_cuda": RANKS},
+    check(n8 == {"sha1_batch_cuda": RANKS, "survivor_segmin_cuda": RANKS,
+                 "block_candidates_cuda": RANKS, "index_best_cuda": RANKS},
           f"8-rank step launched {n8}")
-    check(n1 == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1},
+    check(n1 == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1,
+                 "block_candidates_cuda": 1, "index_best_cuda": 1},
           f"1-rank step launched {n1}")
     for r, out in enumerate(ranks):
         for name, a, b in zip(("digests", "sigs", "best"), out[1:],
@@ -1012,22 +1184,65 @@ def check_ingest_step(dev, card: str, total: dict) -> None:
           f"runs the body: each row is hashed sp x tp = "
           f"{sp * mesh8.shape['tp']} times on the 8-rank mesh)")
 
+    check_block_kernel(d_streams, sp, bits, rec_block)
+    check_index_kernel(dev, rng, sig8.view(torch.int32), d_index, rec_index)
     ms8 = median_ms(lambda: step8(*in8), 3)
     ms1 = median_ms(lambda: step1(*in1), 3)
-    m = INDEX_ROWS
-    q_ms = median_ms(lambda: index_best(sig8.view(torch.int32), d_index), 5)
-    q_bound = max((n + m) * 64 * 4 / HBM_BYTES_PER_S,
-                  2 * n * m * 64 / INT32_OPS_PER_S) * 1e3
-    halo = torch.zeros((2, HALO), dtype=torch.int64, device=dev)
-    cdc_ms = median_ms(lambda: block_candidates(gear_values(d_streams), halo,
-                                                bits), 5)
-    cdc_bound = max(4 * SEGMENT / HBM_BYTES_PER_S,
-                    2 * SEGMENT * CDC_OPS_PER_POSITION / INT32_OPS_PER_S) * 1e3
     print(f"  ingest step, CUDA-event median of 3: 8 ranks on one card "
           f"{ms8:.2f} ms, 1 rank {ms1:.2f} ms  [{card}]")
-    print(f"  index query ({n} x {m} x 64, tiled): {q_ms:.3f} ms, bound "
-          f"{q_bound:.3f} ms; stage-1 CDC of 2 x {SEGMENT >> 20} MB: "
-          f"{cdc_ms:.3f} ms, bound {cdc_bound:.4f} ms  [{card}]")
+    print(f"  stage-1 CDC of 2 x {SEGMENT >> 20} MB: gear kernel (dense) "
+          f"{rec_block.ms:.4f} ms, its plain twin (the eager pass before) "
+          f"{rec_block.plain_ms:.3f} ms, bound {rec_block.bound_ms:.4f} ms "
+          f"by {rec_block.bound_by}; index query ({n} x {INDEX_ROWS} x 64): "
+          f"index kernel {rec_index.ms:.3f} ms, its plain twin "
+          f"{rec_index.plain_ms:.3f} ms, bound {rec_index.bound_ms:.3f} ms "
+          f"by {rec_index.bound_by}  [{card}]")
+
+
+def check_block_kernel(d_streams: torch.Tensor, sp: int, bits: int,
+                       rec) -> None:
+    """The gear kernel's dense form on the two streams as the 8-rank step
+    splits them (each block after the gear values of its predecessor's
+    last 31 bytes, the first after zeros), against its plain twin, bit
+    for bit; timed on the whole streams."""
+    blocks = d_streams.view(2, sp, -1)
+    zeros = torch.zeros((2, HALO), dtype=torch.int64, device=d_streams.device)
+    for s in range(sp):
+        rows = blocks[:, s, :]
+        halo = gear_values(blocks[:, s - 1, -HALO:]) if s else zeros
+        got = block_candidates_cuda(rows, halo, bits)
+        want = block_candidates(gear_values(rows), halo, bits)
+        err = int((got != want).sum())
+        rec.max_abs_err = max(rec.max_abs_err, min(err, 1))
+        check(err == 0, f"dense gear kernel != plain twin on block {s}")
+    rec.ms = median_ms(lambda: block_candidates_cuda(d_streams, zeros, bits),
+                       5)
+    rec.plain_ms = median_ms(lambda: block_candidates(gear_values(d_streams),
+                                                      zeros, bits), 3)
+    rec.bound_ms, rec.bound_by = block_cdc_bound(*d_streams.shape)
+
+
+def check_index_kernel(dev, rng, sigs: torch.Tensor, index: torch.Tensor,
+                       rec) -> None:
+    """The index kernel on the step's queries against the whole index and
+    on small odd shapes (N and M not multiples of 64, P = 33, an empty
+    index), against its plain twin, bit for bit; timed on the first."""
+    cases = [(sigs, index)]
+    for n, m, p in ((257, 70, 33), (100, 0, 64)):
+        small = rng.integers(0, 3, (n + m, p)).astype(np.int32)
+        cases.append((torch.from_numpy(small[:n]).to(dev),
+                      torch.from_numpy(small[n:]).to(dev)))
+    for q, ix in cases:
+        got = index_best_cuda(q, ix)
+        want = index_best(q, ix)
+        err = float((got - want).abs().max()) if len(got) else 0.0
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        check(torch.equal(got, want), f"index kernel != plain twin at "
+              f"{tuple(q.shape)} x {tuple(ix.shape)}")
+    rec.ms = median_ms(lambda: index_best_cuda(sigs, index), 5)
+    rec.plain_ms = median_ms(lambda: index_best(sigs, index), 3)
+    rec.bound_ms, rec.bound_by = index_bound(sigs.shape[0], index.shape[0],
+                                             sigs.shape[1])
 
 
 def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
@@ -1079,7 +1294,8 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
 
     fn, (chunks, lengths) = entry(dev)
     out, launches = counted(lambda: fn(chunks, lengths))
-    check(launches == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1},
+    check(launches == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1,
+                       "block_candidates_cuda": 1},
           f"entry() launched {launches}")
     raw = sha1.digest_bytes(out["sha1"])
     check(all(raw[i * 20:(i + 1) * 20] == hashlib.sha1(row.tobytes()).digest()
@@ -1096,7 +1312,9 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
     (_, launches2) = counted(lambda: dryrun_multichip(RANKS,
                                                       devices=[dev] * RANKS))
     check(launches2 == {"sha1_batch_cuda": RANKS,
-                        "survivor_segmin_cuda": RANKS},
+                        "survivor_segmin_cuda": RANKS,
+                        "block_candidates_cuda": RANKS,
+                        "index_best_cuda": RANKS},
           f"dryrun_multichip launched {launches2}")
     for name, c in list(launches.items()) + list(launches2.items()):
         total[name] = total.get(name, 0) + c
@@ -1105,19 +1323,22 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
           f"dryrun_multichip({RANKS}, devices=[{dev}] * {RANKS}) passed")
 
 
-def phase_parallel(dev, card: str, seg: bytes, cuts: list[int]
-                   ) -> tuple[int, int]:
-    """Phase 8; returns the SHA-1 and sketch launches of its main-path
-    runs (each counted from 0 just before it)."""
+def phase_parallel(dev, card: str, seg: bytes, cuts: list[int], rec_block,
+                   rec_index) -> tuple[int, int, int, int]:
+    """Phase 8; returns the SHA-1, sketch, dense gear and index launches
+    of its main-path runs (each counted from 0 just before it)."""
     print(f"phase 8: parallel/, the engine's fan-out and the entry on the "
           f"card; every virtual rank sits on {dev}, so no time below says "
           f"anything about scaling across cards")
     total: dict[str, int] = {}
-    check_ingest_step(dev, card, total)
+    check_ingest_step(dev, card, total, rec_block, rec_index)
     check_fan_outs(dev, card, seg, cuts, total)
-    print(f"  phase 8 launches by wrapper: {total}")
+    print(f"  phase 8 launches by wrapper: {total}; no plain twin on the "
+          f"card in any of these runs")
     return (sum(total.get(f.__name__, 0) for f in SHA1_WRAPPERS),
-            sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS))
+            sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS),
+            total.get("block_candidates_cuda", 0),
+            total.get("index_best_cuda", 0))
 
 
 # Phase 9: the live system.
@@ -1141,15 +1362,16 @@ class LaunchCounts:
     SITES = (("sidecar sha1", engine_mod, "sha1_ragged_cuda"),
              ("sidecar sketch", engine_mod, "sketch_ragged_cuda"),
              ("verify sha1", sidecar_mod, "sha1_ragged_cuda"),
-             ("client sha1", fingerprint_mod, "sha1_ragged_cuda"))
+             ("client sha1", fingerprint_mod, "sha1_ragged_cuda"),
+             ("client gear", gear_cdc_mod, "gear_candidates_cuda"))
 
     def __init__(self, tags=()):
         self.tags = list(tags)
         names = [name for name, _, _ in self.SITES]
         if self.tags:
             names = [f"{tag} {name}" for _, tag in self.tags
-                     for name in names if name != "client sha1"]
-            names.append("client sha1")
+                     for name in names if not name.startswith("client")]
+            names += ["client sha1", "client gear"]
         self.n = dict.fromkeys(names, 0)
         self._lock = threading.Lock()
         self._where = threading.local()
@@ -1188,8 +1410,10 @@ class LaunchCounts:
             del sidecar._serve_conn
 
     def reset(self):
+        """Every count to 0, the plain twins' calls on the card too."""
         with self._lock:
             self.n = dict.fromkeys(self.n, 0)
+            reset_plain()
 
 
 def start_sidecar(dev, path: str):
@@ -1252,8 +1476,9 @@ def wait_for(pred, timeout: float):
 
 
 def phase_live(dev, card: str, files: dict[str, bytes], storaged: str
-               ) -> tuple[int, int]:
-    """Phase 9; returns the SHA-1 and sketch launches of the live run."""
+               ) -> tuple[int, int, int]:
+    """Phase 9; returns the SHA-1, sketch and gear launches of the live
+    run."""
     print(f"phase 9: the live system on the card: {storaged}")
     work = tempfile.mkdtemp(prefix="fdfs9")
     base = os.path.join(work, "st")
@@ -1279,7 +1504,7 @@ def phase_live(dev, card: str, files: dict[str, bytes], storaged: str
 
 
 def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
-               ) -> tuple[int, int]:
+               ) -> tuple[int, int, int]:
     sc = StorageClient("127.0.0.1", daemon.port, timeout=600.0, device=dev)
     fp_ms = []
     fp = storage_client_mod.fingerprint_buffer
@@ -1370,12 +1595,13 @@ def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
         check(verify >= 1, "the scrub sent no DEDUP_VERIFY to the sidecar")
         spans = decode_dump(sc.trace_dump(),
                             f"storage 127.0.0.1:{daemon.port}")
+        check_no_plain("the live system")
     finally:
         storage_client_mod.fingerprint_buffer = fp
         sc.close()
 
     # The kernels did the work: one launch of each per served segment,
-    # one SHA-1 launch per negotiated upload.
+    # one SHA-1 and one gear launch per negotiated upload.
     n = fingerprint_launches
     check(len(served) == LIVE_FILES and all(x == SEGMENT for x in served),
           f"the sidecar served {len(served)} segments {served}, not "
@@ -1383,6 +1609,8 @@ def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
     check(n["sidecar sha1"] == len(served) and n["sidecar sketch"]
           == len(served), f"{n} for {len(served)} segments")
     check(n["client sha1"] == 2, f"{n['client sha1']} client SHA-1 launches "
+                                 f"for 2 negotiated uploads")
+    check(n["client gear"] == 2, f"{n['client gear']} client gear launches "
                                  f"for 2 negotiated uploads")
     check(sidecar.stats["fingerprint_bytes"] == LIVE_FILES * SEGMENT,
           f"sidecar fingerprinted {sidecar.stats['fingerprint_bytes']} bytes")
@@ -1393,7 +1621,8 @@ def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
           f"in {up_stats['E']['chunks_missing']} chunks")
     print(f"  launches: {len(served)} segments served, sidecar SHA-1 "
           f"{n['sidecar sha1']}, sketch {n['sidecar sketch']}; client "
-          f"SHA-1 {n['client sha1']}; scrub: {verify} verify launches, "
+          f"SHA-1 {n['client sha1']}, gear {n['client gear']}; no plain "
+          f"twin on the card; scrub: {verify} verify launches, "
           f"{scrub['chunks_verified']} chunks verified, "
           f"{scrub['chunks_corrupt']} corrupt, pass {scrub_s:.1f} s")
     print(f"  plain upload of {SEGMENT >> 20} MB through the daemon, client "
@@ -1415,7 +1644,7 @@ def drive_live(dev, card, files, base, daemon, sidecar, counts, segments
                                     tracer.trace_id).splitlines():
             print("    " + line)
     return (n["sidecar sha1"] + n["client sha1"] + verify,
-            n["sidecar sketch"])
+            n["sidecar sketch"], n["client gear"])
 
 
 # Phase 10: the tracker-routed cluster.  Two storages of one group on
@@ -1456,9 +1685,9 @@ def missing_bytes(data: bytes, stored: set[str]) -> tuple[int, int]:
 
 
 def phase_cluster(dev, card: str, files: dict[str, bytes], storaged: str,
-                  trackerd: str) -> tuple[int, int]:
-    """Phase 10; returns the SHA-1 and sketch launches of the cluster
-    run."""
+                  trackerd: str) -> tuple[int, int, int]:
+    """Phase 10; returns the SHA-1, sketch and gear launches of the
+    cluster run."""
     print(f"phase 10: the tracker-routed cluster on the card: "
           f"{os.path.basename(trackerd)} and two {os.path.basename(storaged)}"
           f" in one group, each on its own port sidecar")
@@ -1507,7 +1736,7 @@ def phase_cluster(dev, card: str, files: dict[str, bytes], storaged: str,
 
 
 def drive_cluster(dev, card, data, paths, taddr, tracker, storages, bases,
-                  segments, counts) -> tuple[int, int]:
+                  segments, counts) -> tuple[int, int, int]:
     t = TrackerClient("127.0.0.1", tracker.port, 60.0)
     check(bool(wait_for(lambda: (lambda g: bool(g) and g[0]["active"] == 2)(
         t.list_groups()), timeout=60)), f"storages never ACTIVE: "
@@ -1645,6 +1874,11 @@ def drive_cluster(dev, card, data, paths, taddr, tracker, storages, bases,
     check(client_sha1 == 1 and n["client sha1"] == 1,
           f"{n['client sha1']} client SHA-1 launches for one negotiated "
           f"upload in this process")
+    check(n["client gear"] == 1 and not any(
+        n.get(f"sidecar {i + 1} client gear") for i in range(2)),
+        f"gear launches {n}: not one, for the negotiated upload in this "
+        f"process")
+    check_no_plain("the tracker-routed cluster")
     untagged = {k: v for k, v in n.items() if v and k.startswith(
         ("sidecar sha1", "sidecar sketch", "verify sha1"))}
     check(not untagged, f"launches outside both sidecars: {untagged}")
@@ -1677,7 +1911,8 @@ def drive_cluster(dev, card, data, paths, taddr, tracker, storages, bases,
     print(f"  every file downloads byte-exact from both storages; a recipe "
           f"on its source; recipes on (storage 1, storage 2): "
           + ", ".join(f"{label[k]} {v}" for k, v in recipes.items()))
-    print(f"  launches: client SHA-1 {n['client sha1']}; "
+    print(f"  launches: client SHA-1 {n['client sha1']}, gear "
+          f"{n['client gear']} (no plain twin on the card); "
           + "; ".join(f"sidecar {i + 1} SHA-1 "
                       f"{n[f'sidecar {i + 1} sidecar sha1']}, sketch "
                       f"{n[f'sidecar {i + 1} sidecar sketch']} for "
@@ -1703,7 +1938,8 @@ def drive_cluster(dev, card, data, paths, taddr, tracker, storages, bases,
             print("    " + line)
     return (n["client sha1"] + sum(n[f"sidecar {i + 1} sidecar sha1"]
                                    for i in range(2)),
-            sum(n[f"sidecar {i + 1} sidecar sketch"] for i in range(2)))
+            sum(n[f"sidecar {i + 1} sidecar sketch"] for i in range(2)),
+            n["client gear"])
 
 
 def main() -> int:
@@ -1727,22 +1963,37 @@ def main() -> int:
     rec_sha1 = KernelRecord("sha1", "fastdfs_tpu_torch/csrc/sha1.cu",
                             "fastdfs_tpu/ops/pallas_sha1.py:93")
     rec_sketch = KernelRecord("sketch",
-                            "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
-                            "fastdfs_tpu/ops/pallas_minhash.py:121")
+                              "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
+                              "fastdfs_tpu/ops/pallas_minhash.py:121")
+    rec_gear = KernelRecord("gear_cdc", "fastdfs_tpu_torch/csrc/gear_cdc.cu",
+                            "fastdfs_tpu/ops/gear_cdc.py:225", xla=True)
+    rec_block = KernelRecord("gear_cdc_block",
+                             "fastdfs_tpu_torch/csrc/gear_cdc.cu",
+                             "fastdfs_tpu/parallel/ingest_step.py:92-105",
+                             xla=True)
+    rec_index = KernelRecord("index_query",
+                             "fastdfs_tpu_torch/csrc/index_query.cu",
+                             "fastdfs_tpu/parallel/ingest_step.py:128-133",
+                             xla=True)
+    records = (rec_sha1, rec_sketch, rec_gear, rec_block, rec_index)
     marks = [time.monotonic()]
-    seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch)
+    seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch, rec_gear)
     marks.append(time.monotonic())
-    rec_sha1.launches, rec_sketch.launches = phase_socket(dev, card)
+    (rec_sha1.launches, rec_sketch.launches,
+     rec_gear.launches) = phase_socket(dev, card)
     marks.append(time.monotonic())
     phase_profile(dev)
     marks.append(time.monotonic())
-    rec_sha1.launches += phase_client(dev, card)
+    sha1_n, gear_n = phase_client(dev, card)
+    rec_sha1.launches += sha1_n
+    rec_gear.launches += gear_n
     marks.append(time.monotonic())
     rec_sha1.launches += phase_streaming(dev, card, seg, cuts)
     marks.append(time.monotonic())
     phase_rs(dev, card)
     marks.append(time.monotonic())
-    sha1_n, sketch_n = phase_parallel(dev, card, seg, cuts)
+    sha1_n, sketch_n, rec_block.launches, rec_index.launches = \
+        phase_parallel(dev, card, seg, cuts, rec_block, rec_index)
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
     marks.append(time.monotonic())
@@ -1750,21 +2001,23 @@ def main() -> int:
     print(f"native daemons: {storaged}, {trackerd} ready in {native_s:.1f} s")
     files = live_corpus()
     marks.append(time.monotonic())
-    sha1_n, sketch_n = phase_live(dev, card, files, storaged)
-    rec_sha1.launches += sha1_n
-    rec_sketch.launches += sketch_n
-    marks.append(time.monotonic())
-    sha1_n, sketch_n = phase_cluster(dev, card, files, storaged, trackerd)
-    rec_sha1.launches += sha1_n
-    rec_sketch.launches += sketch_n
-    marks.append(time.monotonic())
+    for phase in (lambda: phase_live(dev, card, files, storaged),
+                  lambda: phase_cluster(dev, card, files, storaged,
+                                        trackerd)):
+        sha1_n, sketch_n, gear_n = phase()
+        rec_sha1.launches += sha1_n
+        rec_sketch.launches += sketch_n
+        rec_gear.launches += gear_n
+        marks.append(time.monotonic())
+    idle = [r.name for r in records if not r.launches]
+    check(not idle, f"kernels never launched on the main path: {idle}")
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
           f"(phases 2-8, the daemons' build and corpus, phases 9-10: "
           + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)
-    print(json.dumps({"kernels": [rec_sha1.json(), rec_sketch.json()]}))
+    print(json.dumps({"kernels": [r.json() for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

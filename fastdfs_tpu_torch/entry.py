@@ -4,8 +4,8 @@ The counterpart of the JAX package's ``__graft_entry__.py``:
 
 - ``entry(device)`` returns the upload-path fingerprint step (batched
   SHA-1 and MinHash over a chunk batch through the two CUDA kernels, and
-  the CDC cut candidates of the concatenated stream) with example
-  arguments.
+  the CDC cut candidates of the concatenated stream through the gear
+  kernel's dense form) with example arguments.
 - ``dryrun_multichip(n, devices)`` builds an ``n``-rank (dp, sp, tp) mesh
   and runs the whole distributed ingest step once at tiny shapes.
   Without ``devices`` it asks for ``n`` CUDA cards and raises if fewer
@@ -21,10 +21,10 @@ import numpy as np
 import torch
 
 from fastdfs_tpu_torch.ops import resolve_device
+from fastdfs_tpu_torch.ops.cuda_gear import HALO, block_candidates_cuda
 from fastdfs_tpu_torch.ops.cuda_minhash import minhash_batch_cuda
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import (candidate_mask, gear_values,
-                                            gear_window)
+from fastdfs_tpu_torch.ops.gear_cdc import DEFAULT_AVG_BITS
 from fastdfs_tpu_torch.parallel import distributed_ingest_step, make_mesh
 
 
@@ -39,7 +39,9 @@ def entry(device: str | torch.device = "cuda"):
         concatenated stream."""
         chunks = torch.as_tensor(chunks, dtype=torch.uint8).to(dev).contiguous()
         lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
-        cand = candidate_mask(gear_window(gear_values(chunks.reshape(-1))))
+        halo = torch.zeros((1, HALO), dtype=torch.int64, device=dev)
+        cand = block_candidates_cuda(chunks.reshape(1, -1), halo,
+                                     DEFAULT_AVG_BITS)[0]
         return {
             "sha1": sha1_batch_cuda(chunks, lengths),
             "minhash": minhash_batch_cuda(chunks, lengths),

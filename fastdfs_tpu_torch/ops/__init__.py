@@ -66,6 +66,15 @@ def narrow(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).view(torch.uint32)
 
 
+def mean_of_count(count: torch.Tensor, p: int) -> torch.Tensor:
+    """The reference's float32 mean of ``count`` ones among ``p`` values:
+    XLA multiplies the float32 sum by the float32 reciprocal of ``p``, so
+    ``count * fl32(1 / p)``, which differs from a true division ``count /
+    p`` in the last bit for some counts where ``p`` is not a power of
+    two."""
+    return count.to(torch.float32) * float(np.float32(1) / np.float32(p))
+
+
 def split16(c):
     """``c`` in [0, 2**32) (a Python int or an int64 tensor) -> its low and
     high 16-bit halves, the form ``mul32`` multiplies by."""

@@ -36,6 +36,15 @@ _SIGNATURES = {
     # seg, offsets, lens, order, perms, n, sig, sig_stride, z, stream
     "fdfs_sketch_ragged": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP,
                            ctypes.c_longlong, _VP, _VP],
+    # data, len, n, avg_bits, k, out, scratch, stream
+    "fdfs_gear_candidates": [_VP, ctypes.c_longlong, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_longlong, _VP, _VP, _VP],
+    # rows, row_stride, b, L, halo, avg_bits, out, stream
+    "fdfs_gear_block_mask": [_VP, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_longlong, _VP, ctypes.c_int, _VP, _VP],
+    # sigs, index, n, m, p, sms, best, stream
+    "fdfs_index_best": [_VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, _VP, _VP],
 }
 
 

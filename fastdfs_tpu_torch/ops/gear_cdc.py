@@ -9,12 +9,15 @@ The port of ``fastdfs_tpu/ops/gear_cdc.py``, in two halves:
   and the serial referees (``chunk_stream_ref``,
   ``chunk_stream_skipmin_ref``).  The storage daemon's own chunker shares
   this table, so ``DEDUP_FINGERPRINT_CUTS`` cuts equal these.
-- **Device half** (plain PyTorch on the engine's device): ``gear_hashes``,
-  ``gear_candidates`` and ``chunk_stream``, which serve
-  ``DEDUP_FINGERPRINT`` (the sidecar chunks the segment itself).  These
-  are XLA in the reference, not a Pallas kernel.  ``chunk_stream`` is
-  ``upload_padded`` then ``device_cuts``; the client's fingerprint calls
-  the two itself so that its SHA-1 launch reads the same device buffer.
+- **Device half**: ``chunk_stream``, which serves ``DEDUP_FINGERPRINT``
+  (the sidecar chunks the segment itself), is ``upload_padded`` then
+  ``device_cuts``; the client's fingerprint calls the two itself so that
+  its SHA-1 launch reads the same device buffer.  ``device_cuts`` takes
+  the candidates from ``ops.cuda_gear.gear_candidates_cuda``, the CUDA
+  kernel ``csrc/gear_cdc.cu`` on a card.  This module keeps the plain
+  PyTorch twins of that kernel's two forms, ``gear_candidates`` and
+  ``block_candidates``, and ``gear_hashes``.  The reference runs these
+  passes as XLA, not as a Pallas kernel.
 
 The serial gear hash is ``h = (h << 1) + gear[b[i]]`` with a cut candidate
 wherever ``h & mask == 0``.  Because ``<< 1`` pushes a byte's contribution
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from fastdfs_tpu_torch.ops import MASK32, mul32, narrow
+from fastdfs_tpu_torch.ops.cuda_gear import gear_candidates_cuda
 
 
 def _fmix32(x: np.ndarray) -> np.ndarray:
@@ -146,9 +150,16 @@ def gear_window(g: torch.Tensor) -> torch.Tensor:
 
     Prefix doubling: S_w[i] = sum_{k<w} g[i-k] << k satisfies
     S_2w[i] = S_w[i] + (S_w[i-w] << w), so the 32-term window needs
-    log2(32) = 5 shifted adds, not 31.  The sequence-parallel ingest step
-    passes a block's values with its predecessor's trailing 31 in front.
+    log2(32) = 5 shifted adds, not 31.  ``block_candidates`` passes a
+    block's values with its predecessor's trailing 31 in front.
+
+    Every eager gear pass (``gear_hashes``, ``gear_candidates``,
+    ``block_candidates``) runs through here; ``gear_window.cuda_calls``
+    counts those on a CUDA tensor, which the card's paths leave to the
+    kernel.
     """
+    if g.device.type == "cuda":
+        gear_window.cuda_calls += 1
     h = g
     n = h.shape[-1]
     w = 1
@@ -159,6 +170,9 @@ def gear_window(g: torch.Tensor) -> torch.Tensor:
         h = (h + (shifted << w)) & MASK32
         w <<= 1
     return h
+
+
+gear_window.cuda_calls = 0
 
 
 def _gear_hashes(data: torch.Tensor) -> torch.Tensor:
@@ -179,16 +193,18 @@ def candidate_mask(hashes: torch.Tensor, avg_bits: int = DEFAULT_AVG_BITS
     return (hashes & ((1 << avg_bits) - 1)) == 0
 
 
-def gear_candidates(data: torch.Tensor, n: int, avg_bits: int,
-                    k: int) -> torch.Tensor:
+def gear_candidates(data: torch.Tensor, n: int, avg_bits: int, k: int
+                    ) -> torch.Tensor:
     """The first ``k`` candidate positions within the first ``n`` bytes,
     sorted and padded with ``len(data)``, computed and compacted on the
-    data's device: int64 ``(k,)``.
+    data's device, then the number of candidates below ``n`` (more than
+    ``k`` where the positions were cut short): int64 ``(k + 1,)``.  The
+    reference returns the ``(k,)`` positions alone.
 
-    Compaction is a prefix sum plus a scatter, so the output has a fixed
-    size and nothing waits on the host until the caller fetches it.  A
-    full last slot signals possible overflow (the caller then recovers
-    from the dense mask).
+    The plain twin of the compacted form of ``csrc/gear_cdc.cu``
+    (``ops.cuda_gear.gear_candidates_cuda``).  Compaction is a prefix sum
+    plus a scatter, so the output has a fixed size and nothing waits on
+    the host until the caller fetches it.
     """
     size = data.shape[0]
     pos = torch.arange(size, device=data.device)
@@ -197,7 +213,20 @@ def gear_candidates(data: torch.Tensor, n: int, avg_bits: int,
     slot = torch.where(m & (rank < k), rank, k)     # k = discard slot
     out = torch.full((k + 1,), size, dtype=torch.int64, device=data.device)
     out.scatter_(0, slot, pos)
-    return out[:k]
+    out[k] = m.sum()
+    return out
+
+
+def block_candidates(g: torch.Tensor, halo: torch.Tensor,
+                     avg_bits: int) -> torch.Tensor:
+    """Cut candidates of one block: int64 gear values ``g`` (B, L) and the
+    gear values of the 31 bytes before it ``halo`` (B, 31) -> bool (B, L),
+    equal to the whole stream's ``candidate_mask`` at these positions.
+
+    The plain twin of the dense form of ``csrc/gear_cdc.cu``
+    (``ops.cuda_gear.block_candidates_cuda``, which takes the bytes)."""
+    h = gear_window(torch.cat([halo, g], dim=1))[:, _HALO:]
+    return (h & ((1 << avg_bits) - 1)) == 0
 
 
 def select_cuts(
@@ -316,8 +345,9 @@ def chunk_stream(
     as in the reference; trailing padding cannot affect ``h[i]`` for real
     positions.  Only the sparse candidate list leaves the device (fetched
     with 4x headroom over the expected density); if a pathological input
-    exceeds the headroom, the dense mask recovers exactly.  ``_k_override``
-    lets tests force that recovery.
+    exceeds the headroom, the pass runs again with room for every
+    candidate, so the cuts stay exact.  ``_k_override`` lets tests force
+    that recovery.
 
     ``cdc_policy``: ``CDC_POLICY_DEFAULT`` is cut-identical to
     ``chunk_stream_ref``; ``CDC_POLICY_SKIPMIN`` to
@@ -388,22 +418,22 @@ def device_cuts(host: np.ndarray, dev: torch.Tensor, n: int,
                 cdc_policy: int = CDC_POLICY_DEFAULT,
                 _k_override: int | None = None) -> list[int]:
     """``chunk_stream``'s cuts of the ``n`` bytes that ``upload_padded``
-    staged as ``host`` and ``dev`` (``n >= 1``)."""
+    staged as ``host`` and ``dev`` (``n >= 1``), from the candidates of
+    ``gear_candidates_cuda`` (the kernel on a card, its plain twin on the
+    CPU), on the stream that staged ``dev``."""
     if cdc_policy not in (CDC_POLICY_DEFAULT, CDC_POLICY_SKIPMIN):
         raise ValueError(f"unknown cdc_policy {cdc_policy}")
     padded = _cdc_len(n)
     dev = dev[:padded]
     k = _k_override if _k_override is not None else max(
         padded >> max(avg_bits - 2, 0), 256)
-    idx = gear_candidates(dev, n, avg_bits, k).cpu().numpy()
-    if idx[-1] >= padded:  # last slot unused => no overflow
-        cand = idx[idx < padded]
-    else:
-        # Candidate buffer possibly overflowed (>4x the expected
-        # density): fetch the dense mask once (exact, just slower)
-        # rather than risk missed cut points.
-        mask = candidate_mask(_gear_hashes(dev[:n]), avg_bits)
-        cand = np.flatnonzero(mask.cpu().numpy())
+    out = gear_candidates_cuda(dev, n, avg_bits, k).cpu().numpy()
+    count = int(out[k])
+    if count > k:
+        # More candidates than slots (>4x the expected density): run the
+        # pass again with a slot for each, rather than miss a cut point.
+        out = gear_candidates_cuda(dev, n, avg_bits, count).cpu().numpy()
+    cand = out[:count]
     if cdc_policy == CDC_POLICY_SKIPMIN:
         return select_cuts_skipmin(host[:n], cand, n, min_size, avg_bits,
                                    max_size)

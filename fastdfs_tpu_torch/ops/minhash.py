@@ -25,8 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fastdfs_tpu_torch.ops import (MASK32, mul32, narrow, ragged_batches,
-                                   split16, widen)
+from fastdfs_tpu_torch.ops import (MASK32, mean_of_count, mul32, narrow,
+                                   ragged_batches, split16, widen)
 
 DEFAULT_SHINGLE = 5
 DEFAULT_PERMS = 64
@@ -220,5 +220,6 @@ def sketch_ragged(seg: torch.Tensor, offsets: torch.Tensor,
 def estimate_jaccard(sig_a: torch.Tensor, sig_b: torch.Tensor) -> torch.Tensor:
     """Agreement fraction of two signatures ≈ Jaccard similarity:
     ``(…, P)`` vs ``(…, P)`` -> ``(…,)`` float32."""
-    return (widen(sig_a) == widen(sig_b)).to(torch.float32).mean(dim=-1)
+    eq = widen(sig_a) == widen(sig_b)
+    return mean_of_count(eq.sum(dim=-1), eq.shape[-1])
 

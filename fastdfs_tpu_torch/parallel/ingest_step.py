@@ -10,6 +10,8 @@ on its shard, inside one process, and the collectives of
    seams, so each rank sends the gear values of its trailing 31 bytes to
    the next rank along ``sp`` (``ppermute``); the first block's halo is
    zero values (not zero bytes: byte 0 has gear value ``fmix32(1)``).
+   The gear kernel's dense form (``block_candidates_cuda``) hashes the
+   block after its halo.
 2. **SHA-1, data-parallel (dp)**: rows shard over ``dp``; each rank runs
    the SHA-1 kernel (``sha1_batch_cuda``) on its rows, then the digests
    are all-gathered along ``dp``.
@@ -20,8 +22,9 @@ on its shard, inside one process, and the collectives of
    and 64 permutations the fused kernel (``minhash_batch_cuda``) signs
    the rows whole.
 4. **Index query (dp + pmax)**: the signature index is row-sharded over
-   ``dp``; each rank scores the gathered signatures against its shard in
-   tiles and the best similarity is reduced with ``pmax``.
+   ``dp``; each rank scores the gathered signatures against its shard
+   through the index kernel (``index_best_cuda``) and the best
+   similarity is reduced with ``pmax``.
 
 Every rank runs the whole body, as ``shard_map`` does: ranks that differ
 only in ``sp`` or ``tp`` hash the same rows (stages 2-3 run ``sp * tp``
@@ -30,7 +33,9 @@ collectives: rows shard over a 1-D ``dp`` mesh, each rank runs both
 kernels on its rows.
 
 On CPU ranks every kernel wrapper takes its plain twin; on CUDA ranks it
-launches its kernel or raises.
+launches its kernel or raises.  The plain twins of stages 1 and 4,
+``block_candidates`` (from ``ops.gear_cdc``) and ``index_best`` (from
+``ops.cuda_index``), stay importable from here.
 """
 
 from __future__ import annotations
@@ -38,22 +43,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fastdfs_tpu_torch.ops.cuda_gear import block_candidates_cuda
+from fastdfs_tpu_torch.ops.cuda_index import (  # noqa: F401 (re-export)
+    index_best, index_best_cuda)
 from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
                                                 minhash_batch_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import WINDOW, gear_values, gear_window
+from fastdfs_tpu_torch.ops.gear_cdc import (  # noqa: F401 (re-export)
+    WINDOW, block_candidates, gear_values)
 from fastdfs_tpu_torch.ops.minhash import perm_tensors, signature_tiles
 from fastdfs_tpu_torch.parallel.collectives import all_gather, pmax, ppermute
 from fastdfs_tpu_torch.parallel.mesh import Mesh
 
 HALO = WINDOW - 1
-
-# (query, index row) pairs the index query scores at once: a bool
-# (pairs, P) comparison, 256 MB at P = 64, where the reference
-# materialises all N x M_loc x P at once.
-QUERY_PAIRS = 1 << 22
-
 
 _NUMPY = {torch.uint8: np.uint8, torch.int32: np.int32}
 
@@ -129,35 +132,6 @@ def _sign_rows(rows: torch.Tensor, lens: torch.Tensor, shingle: int,
     return signature_tiles(z, perms[1].shape[0], perms).view(torch.int32)
 
 
-def block_candidates(g: torch.Tensor, halo: torch.Tensor,
-                     avg_bits: int) -> torch.Tensor:
-    """Cut candidates of one block: int64 gear values ``g`` (B, L) and the
-    gear values of the 31 bytes before it ``halo`` (B, 31) -> bool (B, L),
-    equal to the whole stream's ``candidate_mask`` at these positions."""
-    h = gear_window(torch.cat([halo, g], dim=1))[:, HALO:]
-    return (h & ((1 << avg_bits) - 1)) == 0
-
-
-def index_best(sigs: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """Best similarity of each query against an index shard: int32 bits
-    ``sigs`` (N, P) and ``index`` (M, P) -> float32 (N,), the largest
-    fraction of equal lanes, 0.0 for an empty shard.  Scored in tiles of
-    ``QUERY_PAIRS`` pairs; ``k / P`` is the same float32 as the
-    reference's mean of ``k`` ones."""
-    n, p = sigs.shape
-    m = index.shape[0]
-    best = torch.zeros(n, dtype=torch.int64, device=sigs.device)
-    tm = max(1, min(m, 4096))
-    tn = max(1, QUERY_PAIRS // tm)
-    for n0 in range(0, n, tn):
-        q = sigs[n0:n0 + tn, None, :]
-        for m0 in range(0, m, tm):
-            eq = q == index[None, m0:m0 + tm, :]
-            best[n0:n0 + tn] = torch.maximum(best[n0:n0 + tn],
-                                             eq.sum(dim=2).amax(dim=1))
-    return best.to(torch.float32) / p
-
-
 class IngestStep:
     """The distributed ingest step for one mesh (``make_ingest_step``).
 
@@ -210,16 +184,18 @@ class IngestStep:
         index = _shard(mesh, _tensor(index_sigs, torch.int32), ("dp", None))
         ranks = range(mesh.size)
 
-        # Stage 1: sequence-parallel CDC with the ring halo exchange.
-        g = [gear_values(b[:, 0, :]) for b in blocks]
-        prev = ppermute(mesh, [x[:, -HALO:] for x in g], "sp",
-                        [(i, (i + 1) % sp) for i in range(sp)])
+        # Stage 1: sequence-parallel CDC with the ring halo exchange: only
+        # the gear values of each block's trailing 31 bytes travel.
+        rows_sp = [b[:, 0, :] for b in blocks]
+        prev = ppermute(mesh, [gear_values(x[:, -HALO:]) for x in rows_sp],
+                        "sp", [(i, (i + 1) % sp) for i in range(sp)])
         cand = []
         for r in ranks:
+            x = rows_sp[r]
             halo = (prev[r] if mesh.coords(r)["sp"] else
-                    torch.zeros((g[r].shape[0], HALO), dtype=torch.int64,
-                                device=g[r].device))
-            cand.append(block_candidates(g[r], halo, self.avg_bits)[:, None])
+                    torch.zeros((x.shape[0], HALO), dtype=torch.int64,
+                                device=x.device))
+            cand.append(block_candidates_cuda(x, halo, self.avg_bits)[:, None])
 
         # Stage 2: data-parallel SHA-1 and the digest all-gather.
         digests = all_gather(mesh, [sha1_batch_cuda(rows[r], lens[r])
@@ -232,7 +208,7 @@ class IngestStep:
         sigs = all_gather(mesh, all_gather(mesh, sigs, "tp", 1), "dp", 0)
 
         # Stage 4: dp-sharded index query and the global max.
-        best = pmax(mesh, [index_best(sigs[r], index[r]) for r in ranks],
+        best = pmax(mesh, [index_best_cuda(sigs[r], index[r]) for r in ranks],
                     "dp")
         return list(zip(cand, digests, sigs, best))
 

@@ -135,10 +135,13 @@ def test_gear_candidates_fixed_size_padded_with_length():
     dev = torch.from_numpy(data)
     dense = np.flatnonzero((jg.gear_hashes_np(data) & 0xFF) == 0)
     dense = dense[dense < 3000]
-    got = tg.gear_candidates(dev, 3000, 8, len(dense) + 5).numpy()
+    k = len(dense) + 5
+    got = tg.gear_candidates(dev, 3000, 8, k).numpy()
     assert np.array_equal(got[:len(dense)], dense)
-    assert (got[len(dense):] == 4096).all()
-    assert np.array_equal(tg.gear_candidates(dev, 3000, 8, 3).numpy(), dense[:3])
+    assert (got[len(dense):k] == 4096).all()
+    out = tg.gear_candidates(dev, 3000, 8, 3).numpy()
+    assert np.array_equal(out[:3], dense[:3])
+    assert out[3] == len(dense)
 
 
 def test_gear_hashes_match_serial_reference():

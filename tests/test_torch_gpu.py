@@ -24,13 +24,23 @@ from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
+from fastdfs_tpu_torch.ops.cuda_gear import (HALO, block_candidates_cuda,
+                                             gear_candidates_cuda)
+from fastdfs_tpu_torch.ops.cuda_index import index_best, index_best_cuda
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
-from fastdfs_tpu_torch.ops.gear_cdc import (candidate_mask, chunk_stream_np,
-                                            gear_hashes, gear_hashes_np)
+from fastdfs_tpu_torch.ops.gear_cdc import (block_candidates,
+                                            candidate_mask, chunk_stream,
+                                            chunk_stream_np, gear_candidates,
+                                            gear_candidates_np, gear_hashes,
+                                            gear_hashes_np, gear_values,
+                                            gear_window)
 from fastdfs_tpu_torch.ops.streaming import stream_batches
 from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
                                         make_fingerprint_step,
                                         make_ingest_step, make_mesh)
+# tests/ is on sys.path under pytest; a host may have another package
+# named ``tests``, which would shadow this directory as a package.
+from torch_native import dense_pair
 
 
 @pytest.fixture
@@ -405,3 +415,90 @@ def test_entry_and_dryrun_on_card(cuda_device):
     want = (gear_hashes_np(chunks.reshape(-1)) & 0x1FFF) == 0
     assert np.array_equal(out["cut_candidates"].cpu().numpy(), want)
     dryrun_multichip(8, devices=[cuda_device] * 8)
+
+
+# -- the gear CDC and index-query kernels against their plain twins ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,n,bits", [
+    (4096, 4096, 13), (4096, 3001, 6), ((1 << 20) + 4096, (1 << 20) - 17, 13),
+    (1 << 26, 1 << 26, 13), (70000, 65537, 0)])
+def test_gear_kernel_matches_plain_twin(cuda_device, size, n, bits):
+    data = np.random.RandomState(size % 1000 + bits).randint(
+        0, 256, size, dtype=np.uint8)
+    buf = torch.from_numpy(data).to(cuda_device)
+    host = gear_candidates_np(data[:n], bits)
+    for k in (max(size >> max(bits - 2, 0), 256), 3, len(host) + 7):
+        before = gear_candidates_cuda.launches
+        out = gear_candidates_cuda(buf, n, bits, k)
+        torch.cuda.synchronize()
+        assert gear_candidates_cuda.launches == before + 1
+        assert torch.equal(out, gear_candidates(buf, n, bits, k))
+        got = out.cpu().numpy()
+        pos = got[:k]
+        assert got[k] == len(host)
+        assert np.array_equal(pos[:len(host)], host[:k])
+        assert (pos[len(host):] == size).all()
+
+
+@pytest.mark.gpu
+def test_overflow_recovers_through_the_kernel(cuda_device):
+    x, y = dense_pair(13)
+    data = np.random.RandomState(21).randint(0, 256, 4 << 20, dtype=np.uint8)
+    data[1 << 20:(1 << 20) + (64 << 10)] = np.tile(np.array([x, y], np.uint8),
+                                                   32 << 10)
+    data = data.tobytes()
+    launches, plain = gear_candidates_cuda.launches, gear_window.cuda_calls
+    cuts = chunk_stream(data, device=cuda_device)
+    assert cuts == chunk_stream_np(data)
+    assert gear_candidates_cuda.launches == launches + 2
+    assert gear_window.cuda_calls == plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,length,bits", [(2, 1 << 25, 13), (3, 1000, 4),
+                                           (1, 3 * 16384 + 5, 13),
+                                           (2, 40, 0)])
+def test_block_kernel_matches_plain_twin(cuda_device, b, length, bits):
+    rng = np.random.RandomState(length % 997)
+    streams = torch.from_numpy(rng.randint(0, 256, (b, 2, length),
+                                           dtype=np.uint8)).to(cuda_device)
+    zeros = torch.zeros((b, HALO), dtype=torch.int64, device=cuda_device)
+    halos = (zeros, gear_values(streams[:, 0, -HALO:]) if length >= HALO
+             else torch.from_numpy(rng.randint(0, 2**32, (b, HALO),
+                                               dtype=np.int64)).to(cuda_device))
+    for s, halo in enumerate(halos):
+        rows = streams[:, s, :]                      # row stride 2 * length
+        before = block_candidates_cuda.launches
+        got = block_candidates_cuda(rows, halo, bits)
+        torch.cuda.synchronize()
+        assert block_candidates_cuda.launches == before + 1
+        assert torch.equal(got, block_candidates(gear_values(rows), halo,
+                                                 bits))
+    if length >= HALO:
+        whole = candidate_mask(widen(gear_hashes(streams[0].reshape(-1))),
+                               bits)
+        assert torch.equal(torch.cat([block_candidates_cuda(
+            streams[:1, s, :], halos[s][:1], bits) for s in range(2)], 1)[0],
+            whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,p", [(13, 37, 8), (257, 70, 33), (65, 129, 64),
+                                   (100, 0, 64), (1, 1, 1), (64, 64, 48),
+                                   (6400, 65536, 64)])
+def test_index_kernel_matches_plain_twin(cuda_device, n, m, p):
+    rng = np.random.RandomState(n + m + p)
+    hi = 3 if n * m < 1 << 20 else 2**32
+    words = rng.randint(0, hi, (n + m, p), dtype=np.uint64).astype(np.uint32)
+    if m:
+        words[:min(n, 5)] = words[n:n + min(n, 5)]    # exact matches
+    t = torch.from_numpy(words.view(np.int32)).to(cuda_device)
+    sigs, index = t[:n], t[n:]
+    before = index_best_cuda.launches
+    got = index_best_cuda(sigs, index)
+    torch.cuda.synchronize()
+    assert index_best_cuda.launches == before + (1 if m else 0)
+    assert torch.equal(got, index_best(sigs, index))
+    if m:
+        assert (got[:min(n, 5)] == 1.0).all()

@@ -27,13 +27,13 @@ from fastdfs_tpu.parallel import make_mesh as jmake_mesh
 from fastdfs_tpu.parallel.ingest_step import fingerprint_mesh as jfp_mesh
 from fastdfs_tpu.parallel.ingest_step import (
     make_fingerprint_step as jmake_fp_step)
-from fastdfs_tpu_torch.ops.gear_cdc import GEAR_TABLE
 from fastdfs_tpu_torch.parallel import (distributed_ingest_step,
                                         factorize_devices, fingerprint_mesh,
                                         make_fingerprint_step,
                                         make_ingest_step, make_mesh)
 from fastdfs_tpu_torch.parallel.collectives import all_gather, pmax, ppermute
 from fastdfs_tpu_torch.parallel.ingest_step import index_best
+from tests.torch_native import plant_candidate
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -205,17 +205,6 @@ def test_ingest_step_digests_are_hashlib(n):
     assert [d.astype(">u4").tobytes() for d in ours[1]] == want
 
 
-def _plant_candidate(buf: np.ndarray, p: int, avg_bits: int = 13) -> None:
-    """Make position p a cut candidate of the whole stream by setting
-    buf[p - 1] and buf[p] (the low avg_bits bits of the gear hash at p
-    depend only on its last avg_bits bytes)."""
-    g = GEAR_TABLE.astype(np.int64)
-    rest = sum(int(g[buf[p - k]]) << k for k in range(2, avg_bits)
-               if p - k >= 0)
-    low = (g[:, None] + (g[None, :] << 1) + rest) & ((1 << avg_bits) - 1)
-    buf[p], buf[p - 1] = np.argwhere(low == 0)[0]
-
-
 @pytest.mark.parametrize("n,where", [(8, "start"), (8, "seam"), (4, "start"),
                                      (4, "seam"), (2, "start"), (1, "start")])
 def test_candidates_within_a_window_of_a_seam_or_the_start(n, where):
@@ -231,7 +220,7 @@ def test_candidates_within_a_window_of_a_seam_or_the_start(n, where):
     for b in range(stream.shape[0]):
         full = stream[b].reshape(-1)
         for p in planted:
-            _plant_candidate(full, p)
+            plant_candidate(full, p, 13)
         stream[b] = full.reshape(stream.shape[1:])
     cand = distributed_ingest_step(mesh, stream, chunks, lens, index)[0]
     for b in range(stream.shape[0]):
@@ -266,7 +255,7 @@ def test_empty_index_scores_zero(n):
 
 
 def test_index_query_tiles_equal_the_dense_score(monkeypatch):
-    from fastdfs_tpu_torch.parallel import ingest_step
+    from fastdfs_tpu_torch.ops import cuda_index
 
     rng = np.random.RandomState(9)
     index = rng.randint(0, 4, size=(37, 8)).astype(np.int32)
@@ -274,7 +263,7 @@ def test_index_query_tiles_equal_the_dense_score(monkeypatch):
                            .astype(np.int32)])
     dense = (sigs[:, None] == index[None]).mean(axis=2, dtype=np.float32
                                                 ).max(axis=1)
-    monkeypatch.setattr(ingest_step, "QUERY_PAIRS", 5)   # many small tiles
+    monkeypatch.setattr(cuda_index, "QUERY_PAIRS", 5)    # many small tiles
     got = index_best(torch.from_numpy(sigs), torch.from_numpy(index))
     assert np.array_equal(got.numpy(), dense)
     assert got[0] == 1.0 and got[1] == 1.0

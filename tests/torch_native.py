@@ -16,6 +16,9 @@ the reference's suites keep their own binaries.  ``start_tracker`` and
 harness's configs.  ``chip_smoke.py`` loads this file by its path (a
 host may have another package named ``tests``), and this file loads
 ``tests/harness.py`` the same way.
+
+It also holds the gear-CDC inputs that the port's tests and
+``chip_smoke.py`` share: ``plant_candidate`` and ``dense_pair``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ import os
 import re
 import subprocess
 import time
+
+import numpy as np
+
+from fastdfs_tpu_torch.ops.gear_cdc import GEAR_TABLE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE = os.path.join(REPO, "native")
@@ -168,6 +175,29 @@ def start_storage(storaged: str, base: str, ip: str = "127.0.0.1",
     port = port or harness.free_port()
     conf = harness.make_storage_conf(base, port, ip=ip, **kw)
     return harness.Daemon(storaged, conf, port, ip=ip)
+
+
+def plant_candidate(buf: np.ndarray, p: int, avg_bits: int) -> None:
+    """Set ``buf[p - 1]`` and ``buf[p]`` so that position ``p`` is a cut
+    candidate of the whole stream: the low ``avg_bits`` bits of the gear
+    hash at ``p`` depend only on its last ``avg_bits`` bytes.  Planting in
+    increasing order keeps earlier plants two or more apart intact."""
+    g = GEAR_TABLE.astype(np.int64)
+    rest = sum(int(g[buf[p - k]]) << k for k in range(2, avg_bits)
+               if p - k >= 0)
+    low = (g[:, None] + (g[None, :] << 1) + rest) & ((1 << avg_bits) - 1)
+    buf[p], buf[p - 1] = np.argwhere(low == 0)[0]
+
+
+def dense_pair(avg_bits: int) -> tuple[int, int]:
+    """Bytes (x, y) whose run x y x y ... makes every y a cut candidate:
+    the hash at a y is g(y) * S + g(x) * 2S with S = sum of 4**j, j < 16."""
+    g = GEAR_TABLE.astype(np.uint64)
+    s = np.uint64(0x55555555)
+    h = (g[None, :] * s + g[:, None] * (s << np.uint64(1))) & np.uint64(
+        0xFFFFFFFF)
+    xs, ys = np.nonzero((h & np.uint64((1 << avg_bits) - 1)) == 0)
+    return int(xs[0]), int(ys[0])
 
 
 if __name__ == "__main__":
