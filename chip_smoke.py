@@ -20,11 +20,20 @@ before the last line):
    and a last chunk past max_size); one chunk as large as the segment;
    and the padded ``(N, L)`` adapters at 256 x 2048.  Then the gear CDC
    kernel's compacted form (``csrc/gear_cdc.cu``) against its plain twin
-   and the host scan: on the segment as the client stages it (timed),
-   below a non-power-of-two ``n``, and on an adversarial 4 MB buffer
-   (candidates planted in the first window and at the kernel's thread
-   and tile seams, and a dense run that overflows ``device_cuts``' k,
-   whose recovery must relaunch the kernel and cut as the host does).
+   and the host scan: on the segment as the client stages it (more tiles
+   than the kernel's persistent grid has blocks; timed), below a
+   non-power-of-two ``n``, on a 5 KiB buffer (fewer tiles than blocks),
+   on buffers planted at the kernel's thread-run and tile seams at
+   avg_bits 17, 18 and 32, and on an adversarial 4 MB buffer (candidates
+   planted in the first window and at the seams, from
+   ``ops.cuda_gear``'s ``RUN`` and ``TILE``, and a dense run that
+   overflows ``device_cuts``' k, whose recovery must relaunch the kernel
+   and cut as the host does); 50 launches on the segment and on the
+   adversarial buffer at each k must give the first launch's output bit
+   for bit.  Every kernel's ``ms`` is the CUDA-event median of a call of
+   its wrapper; the gear kernel's two forms also give ``device_ms``,
+   that call's device time under torch.profiler (kernels and memsets,
+   without the host's time in the wrapper, which is longer than theirs).
 3. The main path through the socket: the port's DedupSidecar serves in a
    thread; a seeded 256 MB corpus (A; B = A with scattered edits; C = a
    copy of A; D unique), 64 MB per file, goes in as one
@@ -42,9 +51,10 @@ before the last line):
    card over corpus file A and a second seeded payload, both exactly
    2^26 bytes (so the device CDC's power-of-two buffer has no slack of
    its own), equal to ``chunk_stream_np`` plus hashlib, one SHA-1 and
-   one gear launch per call; the median wall time of 5 calls on A, the
-   SHA-1 kernel's share of it, and the gear kernel's time beside its
-   plain twin's (the eager pass it replaced) and its bound.
+   one gear launch (one device kernel) per call; the median wall time of
+   5 calls on A, the SHA-1 kernel's share of it, and the gear kernel's
+   device time beside its plain twin's (the eager pass it replaced) and
+   its bound.
 6. Streaming: phase 2's segment as padded ``(256, 65536)`` batches
    through ``sha1_batch_cuda`` with ``ops.streaming.stream_batches``, in
    order and equal to direct calls and hashlib, timed at depth 1 and 2.
@@ -54,14 +64,18 @@ before the last line):
    k + m shards; the median ms of encode and rebuild beside the bound.
 8. ``parallel/`` with every virtual rank on the one card: the ingest step
    over a (2, 2, 2) mesh and over one rank on two seeded 64 MB streams
-   (cut candidates planted at the block seam and the stream start), one
+   (cut candidates planted at the block seam, the gear kernel's run and
+   tile seams and the stream start), one
    stream's ~6,400 chunks as 64 KiB rows and a 65,536-row index, checked
    bit for bit against the whole streams' candidates, hashlib, the
    ragged sketch kernel and NumPy's dense score; the engine's fan-out
    over 2 and 4 ranks against ``fan_out=1``; the fingerprint step over 1
    and 2 ranks against the kernels; ``entry()`` and
    ``dryrun_multichip(8)``.  The gear kernel's dense form on the streams
-   as the 8-rank step splits them, with their halos, and the index kernel
+   as the 8-rank step splits them, with their halos, on rows of 3 tiles
+   and 5 bytes read from on and off a 16-byte boundary and on rows
+   planted at avg_bits 17, 18 and 32 (timed on the whole streams), and
+   the index kernel
    on the step's queries x 65,536 rows and on small odd shapes, against
    their plain twins, bit for bit.  Times of both steps, and of the
    stage-1 CDC and the index query on their kernels beside their plain
@@ -145,7 +159,8 @@ from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.entry import dryrun_multichip, entry
 from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, _build, minhash, rs_code,
                                    sha1, widen)
-from fastdfs_tpu_torch.ops.cuda_gear import (block_candidates_cuda,
+from fastdfs_tpu_torch.ops.cuda_gear import (RUN, TILE,
+                                             block_candidates_cuda,
                                              gear_candidates_cuda)
 from fastdfs_tpu_torch.ops import gear_cdc as gear_cdc_mod
 from fastdfs_tpu_torch.ops.cuda_index import index_best, index_best_cuda
@@ -186,6 +201,8 @@ def _load_native():
 native = _load_native()
 harness = native.harness
 dense_pair, plant_candidate = native.dense_pair, native.plant_candidate
+seam_plants = native.seam_plants
+plant_wide, wide_seam_plants = native.plant_wide, native.wide_seam_plants
 
 SEED = 20261016
 SEGMENT = 64 << 20                     # storage.conf dedup_segment_bytes
@@ -234,8 +251,10 @@ ALU_LATENCY_CYCLES = 4
 # - Gear CDC per byte position: one PRMT to take the byte, one LDS of
 #   its value in the 256-entry gear table, one LEA rolling
 #   h = (h << 1) + g, one LOP3 for the candidate test (predicate out).
-#   4.  (The kernel computes the table value inline, fmix32 of b + 1 in
-#   about 9 instructions: that is its design, not the function's need.)
+#   4.  (The kernel reads the table from shared memory, one copy per
+#   bank, as counted here, in PRMT, IMAD (the address), LDS, IMAD (the
+#   roll) and half a three-input min, which tests 16 positions at once
+#   on hashes kept shifted so that a candidate is zero.)
 # - GF(2^8) matmul per output byte and shard column: one table lookup
 #   (LDS from a 64 KiB table in shared memory) and a quarter of a LOP3
 #   (the xor works on four packed bytes).  1.25.
@@ -308,21 +327,67 @@ def gf_bound(rows: int, k: int, length: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def device_profile(fn) -> tuple[float, dict[str, tuple[float, int]]]:
+PROFILE_TRIES = 5
+
+
+def device_profile(fn, need: tuple[tuple[str, int], ...] = ()
+                   ) -> tuple[float, dict[str, tuple[float, int]]]:
     """One call of ``fn`` under torch.profiler: its wall ms and, per
-    device kernel or copy name, (device us, count)."""
+    device kernel or copy name, (device us, count).  The profiler at
+    times drops a run's device events; with ``need`` (pairs of a name and
+    the launches it must show), ``fn`` is profiled again, up to
+    PROFILE_TRIES times in all, until every pair shows, and ``{}`` comes
+    back for the kernels if none did."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    return wall_ms, {ev.key: (ev.self_device_time_total, ev.count)
-                     for ev in prof.key_averages()
-                     if ev.device_type == torch.autograd.DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        kernels = {ev.key: (ev.self_device_time_total, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if all(sum(c for key, (_, c) in kernels.items() if name in key)
+               >= count for name, count in need):
+            return wall_ms, kernels
+    print(f"  (the profiler's last try showed {len(kernels)} device names: "
+          + ", ".join(f"{key[:40]} x{c}" for key, (_, c) in
+                      sorted(kernels.items())[:8]) + ")", file=sys.stderr)
+    return wall_ms, {}
+
+
+def device_ms(fn, kernel: str, n: int = 20) -> float | None:
+    """Device ms of one call of ``fn``: over ``n`` calls under
+    torch.profiler, after one warm-up call, the mean time of each device
+    kernel, memset or copy that the calls ran (each runs once a call),
+    summed.  The profiler drops one of a run's device events now and
+    then; a mean leaves it out instead of reading it as zero.  None (not
+    measured) where it never showed half the ``n`` kernels whose names
+    hold ``kernel``.  Unlike a CUDA-event time around a call, it leaves
+    out the host's time in the wrapper."""
+    fn()
+    _, kernels = device_profile(lambda: [fn() for _ in range(n)],
+                                ((kernel, n // 2),))
+    if not kernels:
+        return None
+    return sum(us / c for us, c in kernels.values()) / 1e3
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def time_kernel(rec, fn, kernel: str, n: int = 20) -> None:
+    """A gear form's two times on one call ``fn`` of its wrapper: ``ms``,
+    the CUDA-event median of ``n`` calls, as every kernel has, and
+    ``device_ms``, its device time under torch.profiler (``kernel`` names
+    its device kernel)."""
+    rec.ms = median_ms(fn, n)
+    rec.device_ms = device_ms(fn, kernel, n)
 
 
 def sketch_bound(lens: np.ndarray, survivors: int) -> tuple[float, str]:
@@ -349,6 +414,7 @@ class KernelRecord:
         self.name, self.source, self.replaces = name, source, replaces
         self.xla = xla
         self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.device_ms = None
         self.bound_by = ""
         self.max_abs_err = 0
         self.launches = 0
@@ -359,6 +425,8 @@ class KernelRecord:
                "max_abs_err": self.max_abs_err, "ms": self.ms,
                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                "bound_by": self.bound_by, "library_ms": None}
+        if self.device_ms is not None:
+            out["device_ms"] = self.device_ms
         if self.xla:
             out["replaces_kind"] = "jax.jit (XLA) in the reference, not a " \
                                    "Pallas kernel"
@@ -522,39 +590,97 @@ def check_gear(rec, what: str, buf: torch.Tensor, n: int, bits: int, k: int
     return int(count)
 
 
+# At most two blocks of either form fit on an SM (each takes over 100 KiB
+# of shared memory, csrc/gear_cdc.cu): the most blocks a persistent grid
+# can have is twice the SM count.
+BLOCKS_PER_SM = 2
+WIDE_BITS = (17, 18, 32)           # a thread rolls 32 bytes before its run
+
+
+def check_repeats(what: str, buf: torch.Tensor, n: int, bits: int, k: int
+                  ) -> None:
+    """50 launches of the compacted form give the first launch's output
+    bit for bit: the look-back has no race."""
+    first = gear_candidates_cuda(buf, n, bits, k)
+    same = sum(torch.equal(gear_candidates_cuda(buf, n, bits, k), first)
+               for _ in range(50))
+    check(same == 50, f"{50 - same} of 50 repeat launches on the {what} "
+          f"(k = {k}) differ from the first")
+
+
+def wide_buffer(rng, size: int, bits: int) -> np.ndarray:
+    """Seeded bytes with candidates planted at ``bits`` where their
+    windows cross the kernel's run and tile seams."""
+    data = rng.integers(0, 256, size, dtype=np.uint8)
+    planted = wide_seam_plants(size, bits)
+    for p in planted:
+        plant_wide(data, p, bits)
+    check(set(planted) <= set(gear_candidates_np(data, bits).tolist()),
+          f"a position planted at {bits} bits is not a candidate")
+    return data
+
+
 def check_gear_kernel(dev, seg: bytes, rec) -> None:
     """The gear kernel's compacted form on phase 2's segment as the
-    client stages it (timed), below a non-power-of-two n, and on an
-    adversarial buffer: candidates planted in the first window and at
-    the kernel's thread and tile seams, and a run dense enough to
-    overflow ``device_cuts``' k, recovered through the kernel."""
+    client stages it (timed; more tiles than the persistent grid has
+    blocks), below a non-power-of-two n, on a buffer of fewer tiles than
+    blocks, on buffers planted at the run and tile seams at avg_bits 17,
+    18 and 32, and on an adversarial buffer: candidates planted in the
+    first window and at the seams, and a run dense enough to overflow
+    ``device_cuts``' k, recovered through the kernel.  50 launches on the
+    segment and on the adversarial buffer must agree bit for bit."""
     bits = DedupConfig().avg_bits
+    blocks = BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count
     _, staged = upload_padded(seg, dev, slack=SEGMENT_SLACK)
     buf = staged[:SEGMENT]
     k = max(SEGMENT >> (bits - 2), 256)                # chunk_stream's k
+    check(SEGMENT // TILE > blocks, f"{SEGMENT // TILE} tiles, not more "
+          f"than {blocks} blocks")
     count = check_gear(rec, f"{SEGMENT >> 20} MB segment", buf, SEGMENT,
                        bits, k)
-    rec.ms = median_ms(lambda: gear_candidates_cuda(buf, SEGMENT, bits, k))
+    time_kernel(rec, lambda: gear_candidates_cuda(buf, SEGMENT, bits, k),
+                "gear_compact_kernel")
+    # A yardstick, not the function: PyTorch reading the same bytes.
+    sum_ms = device_ms(lambda: buf.view(torch.int64).sum(), "")
     rec.plain_ms = median_ms(lambda: gear_candidates(buf, SEGMENT, bits, k),
                              3)
     rec.bound_ms, rec.bound_by = cdc_bound(SEGMENT, k)
+    check_repeats(f"{SEGMENT >> 20} MB segment", buf, SEGMENT, bits, k)
     odd = SEGMENT - 12345
     odd_count = check_gear(rec, "segment below a non-power-of-two n", buf,
                            odd, bits, k)
 
     rng = np.random.default_rng(SEED + 10)
+    small = 5 * 1024 + 3
+    few = rng.integers(0, 256, small, dtype=np.uint8)
+    for p in seam_plants(small):
+        plant_candidate(few, p, bits)
+    check(small < TILE, "the small buffer is more than one tile")
+    d_few = torch.from_numpy(few).to(dev)
+    few_count = check_gear(rec, "buffer of fewer tiles than blocks", d_few,
+                           small, bits, 256)
+    check_gear(rec, "buffer of fewer tiles than blocks, k short", d_few,
+               small, bits, few_count // 2)
+
+    wide_counts = []
+    for wide in WIDE_BITS:
+        size = 5 * TILE + 77
+        d_wide = torch.from_numpy(wide_buffer(rng, size, wide)).to(dev)
+        wide_counts.append(check_gear(rec, f"buffer planted at {wide} bits",
+                                      d_wide, size, wide, 64))
+        check_gear(rec, f"buffer planted at {wide} bits, k short", d_wide,
+                   size, wide, wide_counts[-1] // 2)
+
     size = 4 << 20
     adv = rng.integers(0, 256, size, dtype=np.uint8)
-    planted = list(range(1, 32, 2))
-    for j in range(1, 9):
-        planted += [64 * j - 1, 64 * j + 1]           # thread runs
-    for j in range(1, 9):
-        planted += [16384 * j + d for d in (-3, -1, 1, 3)]  # tiles
+    run = (1 << 20, (1 << 20) + (64 << 10))           # the dense run
+    x, y = dense_pair(bits)
+    adv[run[0]:run[1]] = np.tile(np.array([x, y], np.uint8), 32 << 10)
+    planted = [p for p in seam_plants(size)
+               if not run[0] - 1 <= p < run[1] + HALO]
     for p in planted:
         plant_candidate(adv, p, bits)
-    x, y = dense_pair(bits)
-    adv[1 << 20:(1 << 20) + (64 << 10)] = np.tile(np.array([x, y], np.uint8),
-                                                  32 << 10)
     host = gear_candidates_np(adv, bits)
     check(set(planted) <= set(host.tolist()), "a planted position is not a "
           "candidate of the adversarial buffer")
@@ -564,6 +690,8 @@ def check_gear_kernel(dev, seg: bytes, rec) -> None:
                       kk)
     check(full > kk, f"the dense run left {full} candidates, not past {kk}")
     check_gear(rec, "adversarial buffer, k = count", d_adv, size, bits, full)
+    for kr in (kk, full):
+        check_repeats("adversarial buffer", d_adv, size, bits, kr)
     before = gear_candidates_cuda.launches
     reset_plain()
     cuts = chunk_stream(adv.tobytes(), device=dev)
@@ -573,14 +701,22 @@ def check_gear_kernel(dev, seg: bytes, rec) -> None:
           f"overflow recovery made {gear_candidates_cuda.launches - before} "
           "gear launches, not 2")
     check_no_plain("overflow recovery")
-    print(f"  gear kernel (compacted) on the {SEGMENT >> 20} MB segment: "
-          f"{count} candidates, {rec.ms:.4f} ms (plain {rec.plain_ms:.2f}, "
-          f"bound {rec.bound_ms:.4f} by {rec.bound_by}); below n = {odd}: "
-          f"{odd_count}; adversarial {size >> 20} MB buffer ({len(planted)} "
-          f"planted at the first window and the thread and tile seams, a "
-          f"64 KiB dense run): {full} candidates past k = {kk}, recovered "
-          f"by a second launch with k = {full}; cuts == chunk_stream_np; "
-          f"bit-exact")
+    print(f"  gear kernel (compacted) on the {SEGMENT >> 20} MB segment "
+          f"({SEGMENT // TILE} tiles of {TILE} B, runs of {RUN}, on at "
+          f"most {blocks} persistent blocks): {count} candidates, "
+          f"{rec.ms:.4f} ms a call (CUDA events), {fmt_ms(rec.device_ms)} "
+          f"ms on the device (plain {rec.plain_ms:.2f}, bound "
+          f"{rec.bound_ms:.4f} by {rec.bound_by}; a PyTorch int64 sum of "
+          f"the same bytes {fmt_ms(sum_ms)} on the device), 50 repeat "
+          f"launches bit-identical; below n = {odd}: {odd_count}; {small} B "
+          f"(1 tile): {few_count}; {5 * TILE + 77} B planted at avg_bits "
+          f"{', '.join(map(str, WIDE_BITS))}: "
+          f"{', '.join(map(str, wide_counts))}; adversarial {size >> 20} MB "
+          f"buffer ({len(planted)} planted at the first window and the run "
+          f"and tile seams, a 64 KiB dense run): {full} candidates past "
+          f"k = {kk}, recovered by a second launch with k = {full}, 50 "
+          f"repeat launches at each k bit-identical; cuts == "
+          f"chunk_stream_np; bit-exact")
 
 
 def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear
@@ -816,7 +952,8 @@ def phase_profile(dev) -> None:
     engine = DedupEngine(DedupConfig(), device=dev)
     engine.fingerprint(data, cuts=cuts)              # staging allocated
     wall_ms, kernels = device_profile(
-        lambda: engine.fingerprint(data, cuts=cuts))
+        lambda: engine.fingerprint(data, cuts=cuts),
+        (("sha1_ragged_kernel", 1), ("sketch_ragged_kernel", 1)))
     groups = {"sha1 kernel": 0.0, "sketch kernel": 0.0, "copies": 0.0,
               "other device ops": 0.0}
     for key, (us, _) in kernels.items():
@@ -831,9 +968,9 @@ def phase_profile(dev) -> None:
     busy_ms = sum(groups.values()) / 1e3
     print(f"phase 4: engine.fingerprint on one {SEGMENT >> 20} MB segment "
           f"with cuts, under torch.profiler: wall {wall_ms:.1f} ms")
-    if busy_ms == 0.0:
-        print("  device time: not measured (the profiler saw no device "
-              "activity)")
+    if not kernels:
+        print(f"  device time: not measured (the profiler missed the "
+              f"kernels in {PROFILE_TRIES} tries)")
         return
     for name, us in groups.items():
         print(f"  device {name}: {us / 1e3:.3f} ms")
@@ -906,7 +1043,8 @@ def phase_client(dev, card: str) -> tuple[int, int]:
 
     # The SHA-1 kernel alone on A's chunk table, and the device CDC pass
     # alone on A's staged buffer, the gear kernel beside its plain twin
-    # (CUDA-event medians, not counted).
+    # (CUDA-event medians, and the gear kernel's device time; not
+    # counted).
     data = payloads["A"]
     cuts = chunk_stream_np(data)
     offsets = [0] + cuts[:-1]
@@ -920,16 +1058,22 @@ def phase_client(dev, card: str) -> tuple[int, int]:
     k = max(SEGMENT >> (bits - 2), 256)              # chunk_stream's k
     cdc_ms = median_ms(lambda: gear_candidates_cuda(staged[:SEGMENT],
                                                     SEGMENT, bits, k))
+    cdc_device_ms = device_ms(lambda: gear_candidates_cuda(staged[:SEGMENT],
+                                                           SEGMENT, bits, k),
+                              "gear_compact_kernel")
     plain_ms = median_ms(lambda: gear_candidates(staged[:SEGMENT], SEGMENT,
                                                  bits, k), 3)
     cdc_bound_ms, cdc_by = cdc_bound(SEGMENT, k)
-    wall_ms, kernels = device_profile(lambda: fingerprint_buffer(data,
-                                                                device=dev))
+    wall_ms, kernels = device_profile(
+        lambda: fingerprint_buffer(data, device=dev),
+        (("sha1_ragged_kernel", 1), ("gear_", 1)))
     cdc = [(us, c) for key, (us, c) in kernels.items() if "gear_" in key]
     other = [(us, c) for key, (us, c) in kernels.items()
              if "sha1_ragged_kernel" not in key and "gear_" not in key
              and not is_copy(key)]
     cdc_launches = sum(c for _, c in cdc)
+    check(not kernels or cdc_launches == 1, f"{cdc_launches} gear device "
+          "kernels in one fingerprint_buffer call, not 1")
     busy = {"sha1 kernel": sum(us for key, (us, _) in kernels.items()
                                if "sha1_ragged_kernel" in key),
             "gear kernel": sum(us for us, _ in cdc),
@@ -940,17 +1084,24 @@ def phase_client(dev, card: str) -> tuple[int, int]:
     print(f"  fingerprint_buffer(A) wall, median of 5: {wall:.1f} ms "
           f"(all: {', '.join(f'{w:.1f}' for w in walls)}); SHA-1 kernel "
           f"{sha1_ms:.4f} ms, {sha1_ms / wall:.4f} of it  [{card}]")
-    print(f"  device CDC on A: gear kernel {cdc_ms:.4f} ms, its plain twin "
-          f"(the eager pass before) {plain_ms:.4f} ms; one gear launch per "
-          f"fingerprint_buffer call ({cdc_launches} gear device kernels: "
-          f"count, scan, write; {sum(c for _, c in other)} other device "
-          f"kernels besides SHA-1 and copies); bound {cdc_bound_ms:.4f} ms "
-          f"by {cdc_by}  [{card}]")
+    kernels_seen = (f"{cdc_launches} gear device kernel, one pass, after "
+                    f"a memset of its span counter and status words; "
+                    f"{sum(c for _, c in other)} other device kernels "
+                    f"besides SHA-1 and copies" if kernels else
+                    "device kernels not measured: the profiler missed them "
+                    f"in {PROFILE_TRIES} tries")
+    print(f"  device CDC on A: gear kernel {cdc_ms:.4f} ms a call (CUDA "
+          f"events), {fmt_ms(cdc_device_ms)} ms on the device, its plain "
+          f"twin (the eager pass before) {plain_ms:.4f} ms; one gear launch "
+          f"per fingerprint_buffer call ({kernels_seen}); bound "
+          f"{cdc_bound_ms:.4f} ms by {cdc_by}  [{card}]")
     busy_ms = sum(busy.values()) / 1e3
-    print(f"  one call under torch.profiler: wall {wall_ms:.1f} ms; device "
-          + ", ".join(f"{name} {us / 1e3:.3f} ms" for name, us in busy.items())
-          + f"; busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}")
+    if kernels:
+        print(f"  one call under torch.profiler: wall {wall_ms:.1f} ms; "
+              "device " + ", ".join(f"{name} {us / 1e3:.3f} ms"
+                                    for name, us in busy.items())
+              + f"; busy {busy_ms:.3f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
     # The same padded payload copied from pageable memory, as the client
     # staged it before it kept a pinned buffer.
     pageable = np.array(host, copy=True)
@@ -1096,10 +1247,12 @@ def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index
     mesh1 = make_mesh(1, devices=[dev])
     dp, sp = mesh8.shape["dp"], mesh8.shape["sp"]
     streams = rng.integers(0, 256, (2, SEGMENT), dtype=np.uint8)
-    # Candidates where the window straddles a block seam, and within the
-    # first window of each stream (zero halo values, not zero bytes).
+    # Candidates where the window straddles a block seam or one of the
+    # gear kernel's thread-run and tile seams, and within the first
+    # window of each stream (zero halo values, not zero bytes).
     seam = SEGMENT // sp
-    planted = [5, 30, seam + 1, seam + 5, seam + 30]
+    planted = [5, 30, RUN - 1, RUN + 1, TILE - 3, TILE + 1, seam - TILE + 1,
+               seam + 1, seam + 5, seam + 30, seam + RUN + 1, seam + TILE - 1]
     for stream in streams:
         for p in planted:
             plant_candidate(stream, p, bits)
@@ -1191,8 +1344,10 @@ def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index
     print(f"  ingest step, CUDA-event median of 3: 8 ranks on one card "
           f"{ms8:.2f} ms, 1 rank {ms1:.2f} ms  [{card}]")
     print(f"  stage-1 CDC of 2 x {SEGMENT >> 20} MB: gear kernel (dense) "
-          f"{rec_block.ms:.4f} ms, its plain twin (the eager pass before) "
-          f"{rec_block.plain_ms:.3f} ms, bound {rec_block.bound_ms:.4f} ms "
+          f"{rec_block.ms:.4f} ms a call (CUDA events), "
+          f"{fmt_ms(rec_block.device_ms)} ms on the device, its plain twin "
+          f"(the eager pass before) {rec_block.plain_ms:.3f} ms, bound "
+          f"{rec_block.bound_ms:.4f} ms "
           f"by {rec_block.bound_by}; index query ({n} x {INDEX_ROWS} x 64): "
           f"index kernel {rec_index.ms:.3f} ms, its plain twin "
           f"{rec_index.plain_ms:.3f} ms, bound {rec_index.bound_ms:.3f} ms "
@@ -1203,8 +1358,9 @@ def check_block_kernel(d_streams: torch.Tensor, sp: int, bits: int,
                        rec) -> None:
     """The gear kernel's dense form on the two streams as the 8-rank step
     splits them (each block after the gear values of its predecessor's
-    last 31 bytes, the first after zeros), against its plain twin, bit
-    for bit; timed on the whole streams."""
+    last 31 bytes, the first after zeros), on rows of 3 tiles and 5
+    bytes, and on rows planted at avg_bits 17, 18 and 32, against its
+    plain twin, bit for bit; timed on the whole streams."""
     blocks = d_streams.view(2, sp, -1)
     zeros = torch.zeros((2, HALO), dtype=torch.int64, device=d_streams.device)
     for s in range(sp):
@@ -1215,11 +1371,50 @@ def check_block_kernel(d_streams: torch.Tensor, sp: int, bits: int,
         err = int((got != want).sum())
         rec.max_abs_err = max(rec.max_abs_err, min(err, 1))
         check(err == 0, f"dense gear kernel != plain twin on block {s}")
-    rec.ms = median_ms(lambda: block_candidates_cuda(d_streams, zeros, bits),
-                       5)
+    # Rows of 3 tiles and 5 bytes (fewer tiles than blocks; the second
+    # row's mask starts off a 16-byte boundary), read from a 16-byte
+    # boundary and from off one.
+    length = 3 * TILE + 5
+    for start in (32, 41):
+        rows = d_streams[:, start:start + length]
+        halo = gear_values(d_streams[:, start - HALO:start])
+        got = block_candidates_cuda(rows, halo, bits)
+        err = int((got != block_candidates(gear_values(rows), halo,
+                                           bits)).sum())
+        rec.max_abs_err = max(rec.max_abs_err, min(err, 1))
+        check(err == 0, f"dense gear kernel != plain twin on rows of "
+              f"{length} B from byte {start}")
+    # Rows of one stream planted at wide avg_bits, the second after the
+    # first's last 31 gear values: the whole stream's candidates.
+    rng = np.random.default_rng(SEED + 11)
+    length = 2 * TILE + 16
+    for wide in WIDE_BITS:
+        data = wide_buffer(rng, 2 * length, wide)
+        rows = torch.from_numpy(data).to(d_streams.device).view(2, length)
+        halo = torch.cat([zeros[:1], gear_values(rows[:1, -HALO:])])
+        got = block_candidates_cuda(rows, halo, wide)
+        err = int((got != block_candidates(gear_values(rows), halo,
+                                           wide)).sum())
+        rec.max_abs_err = max(rec.max_abs_err, min(err, 1))
+        check(err == 0 and np.array_equal(
+                  np.flatnonzero(got.reshape(-1).cpu().numpy()),
+                  gear_candidates_np(data, wide)),
+              f"dense gear kernel != plain twin or the host scan at "
+              f"{wide} bits")
+    time_kernel(rec, lambda: block_candidates_cuda(d_streams, zeros, bits),
+                "gear_block_kernel")
     rec.plain_ms = median_ms(lambda: block_candidates(gear_values(d_streams),
                                                       zeros, bits), 3)
     rec.bound_ms, rec.bound_by = block_cdc_bound(*d_streams.shape)
+    # A yardstick, not the function: PyTorch copying the same bytes.
+    dst = torch.empty_like(d_streams)
+    copy_ms = device_ms(lambda: dst.copy_(d_streams), "")
+    print(f"  gear kernel (dense) on 2 x {SEGMENT >> 20} MB: "
+          f"{rec.ms:.4f} ms a call (CUDA events), {fmt_ms(rec.device_ms)} "
+          f"ms on the device; a PyTorch copy of the same bytes "
+          f"{fmt_ms(copy_ms)} ms on the device; rows of 2 x {length} B "
+          f"planted at avg_bits "
+          f"{', '.join(map(str, WIDE_BITS))}: bit-exact")
 
 
 def check_index_kernel(dev, rng, sigs: torch.Tensor, index: torch.Tensor,

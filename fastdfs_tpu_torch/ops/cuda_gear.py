@@ -14,12 +14,21 @@ stage-1 CDC (``fastdfs_tpu/parallel/ingest_step.py:92-105``).
   after the gear values of the 31 bytes before it; the ingest step's
   stage 1 and the entry's candidates.
 
-Each block hashes a 16 KiB tile after a 32-byte warm-up, a thread per 64
-positions in 32-bit registers.  Bound on an H100: the bytes, one read of
-the buffer (about 4 integer instructions a position would do, with the
-gear table looked up; the kernel computes the table value inline, and
-PERF.md gives its time beside the bound).  On a CPU tensor a wrapper
-returns its plain twin (``gear_cdc.gear_candidates``,
+Both forms run on a persistent grid (the card's SMs times the blocks
+that fit on one, from the occupancy API), each block with the gear table
+in shared memory, one copy per bank, filled once; a block stages its
+next 32 KiB tile by ``cp.async`` while it hashes this one, a thread per
+128 positions in 32-bit registers, one table read and one hash a
+position.  The compacted form is one pass: a block takes a span of
+consecutive tiles, keeps the candidate bits of its thread runs in the
+scratch, finds the span's offset by a decoupled look-back over the spans
+before it and writes the span's candidates at their ranks.  The dense
+form stores its mask 16 bytes at a time.  The compacted form's scratch,
+allocated on each call beside the buffer, is about ``n / 8`` bytes:
+room for each thread run's 128 candidate bits (4 KiB a tile) and the
+look-back's status words.  Bound on an H100: the bytes, one read of the
+buffer (PERF.md gives the kernel's time beside it).  On a CPU tensor a
+wrapper returns its plain twin (``gear_cdc.gear_candidates``,
 ``gear_cdc.block_candidates``); on a CUDA tensor it launches the kernel
 or raises.
 
@@ -35,7 +44,8 @@ import torch
 from fastdfs_tpu_torch.ops import _build, gear_cdc
 
 HALO = 31                 # gear_cdc.WINDOW - 1 (csrc/gear_cdc.cu, kHalo)
-TILE = 1 << 14            # positions per block (csrc/gear_cdc.cu, kTile)
+RUN = 128                 # positions per thread (csrc/gear_cdc.cu, kRun)
+TILE = 256 * RUN          # positions per tile (csrc/gear_cdc.cu, kTile)
 
 
 def _check_bits(avg_bits: int) -> None:
@@ -77,7 +87,11 @@ def gear_candidates_cuda(buf: torch.Tensor, n: int, avg_bits: int, k: int
     tiles = -(-n // TILE)
     if tiles >= 1 << 31:
         raise ValueError(f"n = {n} is past the kernel's {TILE << 31} bytes")
-    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=buf.device)
+    # A span counter and status words, then a map of each tile's thread
+    # runs with candidates and those runs' bits (csrc/gear_cdc.cu): about
+    # n / 8 bytes.
+    scratch = torch.empty(((tiles + 2) & ~1) + tiles * (4 + TILE // 64),
+                          dtype=torch.int64, device=buf.device)
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
         rc = _build.library().fdfs_gear_candidates(

@@ -25,12 +25,14 @@ from fastdfs_tpu.ops import gear_cdc as jg
 from fastdfs_tpu.ops.minhash import estimate_jaccard as jestimate_jaccard
 from fastdfs_tpu_torch.ops import _build, mean_of_count
 from fastdfs_tpu_torch.ops import gear_cdc as tg
-from fastdfs_tpu_torch.ops.cuda_gear import (HALO, block_candidates_cuda,
+from fastdfs_tpu_torch.ops.cuda_gear import (HALO, RUN, TILE,
+                                             block_candidates_cuda,
                                              gear_candidates_cuda)
 from fastdfs_tpu_torch.ops.cuda_index import index_best_cuda
 from fastdfs_tpu_torch.ops.minhash import estimate_jaccard
 from fastdfs_tpu_torch.parallel import ingest_step
-from tests.torch_native import dense_pair, plant_candidate
+from tests.torch_native import (dense_pair, plant_candidate, plant_wide,
+                                wide_seam_plants)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,12 +78,12 @@ def test_count_counts_past_k_and_only_below_n():
 
 
 def test_candidates_at_tile_seams_and_the_first_window():
-    # The kernel's tiles are 16 KiB and its thread runs 64 bytes: plant
-    # candidates on both sides of each seam and in the first window.
+    # Plant candidates on both sides of the kernel's thread-run and tile
+    # seams (its exported geometry) and in the first window.
     bits = 13
-    data = np.random.RandomState(7).randint(0, 256, 1 << 16, dtype=np.uint8)
+    data = np.random.RandomState(7).randint(0, 256, 4 * TILE, dtype=np.uint8)
     planted = [p for p in range(1, 32, 2)]
-    for seam in (64, 128, 1 << 14, 2 << 14, 3 << 14):
+    for seam in (RUN, 2 * RUN, TILE - RUN, TILE, 2 * TILE, 3 * TILE):
         planted += [seam - 3, seam - 1, seam + 1, seam + 3]
     for p in planted:
         plant_candidate(data, p, bits)
@@ -90,6 +92,47 @@ def test_candidates_at_tile_seams_and_the_first_window():
     out = gear_candidates_cuda(torch.from_numpy(data), len(data), bits,
                                len(ref)).numpy()
     assert out[-1] == len(ref) and np.array_equal(out[:-1], ref)
+
+
+@pytest.mark.parametrize("avg_bits", [17, 18, 32])
+def test_wide_avg_bits_at_the_seams_in_both_forms(avg_bits):
+    # Past 17 bits a window reaches 32 bytes before a thread's run: plant
+    # candidates whose windows cross the run and tile seams, and at the
+    # second row's start, whose window lies in the halo.
+    size = 2 * TILE + 77
+    data = np.random.RandomState(avg_bits).randint(0, 256, size,
+                                                   dtype=np.uint8)
+    planted = wide_seam_plants(size, avg_bits)
+    for p in planted:
+        plant_wide(data, p, avg_bits)
+    ref = _ref_candidates(data, size, avg_bits)
+    assert set(planted) <= set(ref.tolist())
+    out = gear_candidates_cuda(torch.from_numpy(data), size, avg_bits,
+                               len(ref) + 2).numpy()
+    assert out[-1] == len(ref) and np.array_equal(out[:len(ref)], ref)
+    assert (out[len(ref):-1] == size).all()
+    rows = torch.from_numpy(data[:2 * TILE]).view(2, TILE)
+    halo = torch.cat([torch.zeros((1, HALO), dtype=torch.int64),
+                      tg.gear_values(rows[:1, -HALO:])])
+    got = block_candidates_cuda(rows, halo, avg_bits).reshape(-1).numpy()
+    assert np.array_equal(np.flatnonzero(got), ref[ref < 2 * TILE])
+
+
+def test_kernel_geometry_matches_the_wrapper():
+    # The wrapper's tile and run (the tests' seams, the scratch it
+    # allocates) are the constants the kernel source is built with.
+    text = (_build.CSRC / "gear_cdc.cu").read_text()
+
+    def const(name):
+        m = re.search(r"constexpr int " + name + r" = ([^;]+);", text)
+        assert m is not None, name
+        return m.group(1).strip()
+
+    threads, run = int(const("kThreads")), int(const("kRun"))
+    assert const("kTile") == "kThreads * kRun"
+    assert int(const("kHalo")) == HALO
+    assert (run, threads * run) == (RUN, TILE)
+    assert TILE % RUN == 0 and RUN % 16 == 0
 
 
 # -- overflow recovery --------------------------------------------------------

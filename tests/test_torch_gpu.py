@@ -24,7 +24,8 @@ from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
-from fastdfs_tpu_torch.ops.cuda_gear import (HALO, block_candidates_cuda,
+from fastdfs_tpu_torch.ops.cuda_gear import (HALO, RUN, TILE,
+                                             block_candidates_cuda,
                                              gear_candidates_cuda)
 from fastdfs_tpu_torch.ops.cuda_index import index_best, index_best_cuda
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda, sha1_ragged_cuda
@@ -40,7 +41,8 @@ from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
                                         make_ingest_step, make_mesh)
 # tests/ is on sys.path under pytest; a host may have another package
 # named ``tests``, which would shadow this directory as a package.
-from torch_native import dense_pair
+from torch_native import (dense_pair, plant_candidate, plant_wide,
+                          seam_plants, wide_seam_plants)
 
 
 @pytest.fixture
@@ -457,7 +459,8 @@ def test_overflow_recovers_through_the_kernel(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,length,bits", [(2, 1 << 25, 13), (3, 1000, 4),
-                                           (1, 3 * 16384 + 5, 13),
+                                           (1, 3 * TILE + 5, 13),
+                                           (3, 2 * TILE + 16, 13),
                                            (2, 40, 0)])
 def test_block_kernel_matches_plain_twin(cuda_device, b, length, bits):
     rng = np.random.RandomState(length % 997)
@@ -481,6 +484,134 @@ def test_block_kernel_matches_plain_twin(cuda_device, b, length, bits):
         assert torch.equal(torch.cat([block_candidates_cuda(
             streams[:1, s, :], halos[s][:1], bits) for s in range(2)], 1)[0],
             whole)
+
+
+def _planted_at_seams(size: int, bits: int, seed: int) -> tuple:
+    """Seeded bytes with candidates planted at ``seam_plants(size)``."""
+    data = np.random.RandomState(seed).randint(0, 256, size, dtype=np.uint8)
+    planted = seam_plants(size)
+    for p in planted:
+        plant_candidate(data, p, bits)
+    return data, planted
+
+
+@pytest.mark.gpu
+def test_gear_kernel_at_the_tile_and_run_seams(cuda_device):
+    bits = 13
+    data, planted = _planted_at_seams(5 * TILE + 77, bits, 11)
+    host = gear_candidates_np(data, bits)
+    assert set(planted) <= set(host.tolist())
+    buf = torch.from_numpy(data).to(cuda_device)
+    for k in (len(host), len(host) // 2):
+        out = gear_candidates_cuda(buf, len(data), bits, k)
+        torch.cuda.synchronize()
+        assert torch.equal(out, gear_candidates(buf, len(data), bits, k))
+        got = out.cpu().numpy()
+        assert got[k] == len(host) and np.array_equal(got[:k], host[:k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("more", [True, False])
+def test_gear_kernel_with_more_and_fewer_tiles_than_blocks(cuda_device,
+                                                           more):
+    # The persistent grid has at most two blocks an SM: a block takes over
+    # 100 KiB of shared memory (csrc/gear_cdc.cu).  One tile is fewer
+    # than any grid.
+    blocks = 2 * torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    size = (3 * blocks + 1) * TILE + 4321 if more else 3 * 1024 + 7
+    assert (-(-size // TILE) > blocks) if more else size < TILE
+    data = np.random.RandomState(size % 1009).randint(0, 256, size,
+                                                      dtype=np.uint8)
+    host = gear_candidates_np(data, 13)
+    buf = torch.from_numpy(data).to(cuda_device)
+    for n in (size, size - 1000):
+        want = host[host < n]
+        for k in (max(size >> 11, 256), len(want) // 3):
+            out = gear_candidates_cuda(buf, n, 13, k)
+            torch.cuda.synchronize()
+            assert torch.equal(out, gear_candidates(buf, n, 13, k))
+            got = out.cpu().numpy()
+            assert got[k] == len(want)
+            assert np.array_equal(got[:min(k, len(want))], want[:k])
+            assert (got[len(want):k] == size).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [4 << 20, 64 << 20])
+def test_gear_kernel_repeats_bit_for_bit(cuda_device, size):
+    # 50 launches on a buffer with a dense run (thousands of candidates a
+    # tile) and the seams planted: the look-back gives one answer.  At
+    # 4 MB a block takes one tile; the 64 MB segment has more tiles than
+    # the grid has blocks, so a block takes a span of several and looks
+    # back over up to hundreds of spans.
+    bits = 13
+    data = np.random.RandomState(23).randint(0, 256, size, dtype=np.uint8)
+    for p in wide_seam_plants(size, bits):
+        plant_wide(data, p, bits)
+    x, y = dense_pair(bits)
+    data[1 << 20:(1 << 20) + (64 << 10)] = np.tile(
+        np.array([x, y], np.uint8), 32 << 10)
+    buf = torch.from_numpy(data).to(cuda_device)
+    host = gear_candidates_np(data, bits)
+    for k in (len(host), len(host) // 2):
+        first = gear_candidates_cuda(buf, len(data), bits, k)
+        assert np.array_equal(first.cpu().numpy()[:-1], host[:k])
+        for _ in range(50):
+            assert torch.equal(gear_candidates_cuda(buf, len(data), bits, k),
+                               first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [17, 18, 32])
+def test_both_forms_at_wide_avg_bits(cuda_device, bits):
+    # Past 17 bits a thread rolls 32 bytes before its run, not 16: plant
+    # candidates whose windows cross the run and tile seams and, in the
+    # dense form, the second row's start (its window in the halo).
+    size = 5 * TILE + 77
+    data = np.random.RandomState(bits).randint(0, 256, size, dtype=np.uint8)
+    planted = wide_seam_plants(size, bits)
+    for p in planted:
+        plant_wide(data, p, bits)
+    host = gear_candidates_np(data, bits)
+    assert set(planted) <= set(host.tolist())
+    buf = torch.from_numpy(data).to(cuda_device)
+    for k in (len(host) + 3, len(host) // 2):
+        out = gear_candidates_cuda(buf, size, bits, k)
+        assert torch.equal(out, gear_candidates(buf, size, bits, k))
+        got = out.cpu().numpy()
+        assert got[k] == len(host)
+        assert np.array_equal(got[:min(k, len(host))], host[:k])
+    length = 2 * TILE + 16
+    rows = buf[:2 * length].view(2, length)
+    halo = torch.cat([torch.zeros((1, HALO), dtype=torch.int64,
+                                  device=cuda_device),
+                      gear_values(rows[:1, -HALO:])])
+    mask = block_candidates_cuda(rows, halo, bits)
+    assert torch.equal(mask, block_candidates(gear_values(rows), halo, bits))
+    assert np.array_equal(np.flatnonzero(mask.reshape(-1).cpu().numpy()),
+                          host[host < 2 * length])
+
+
+@pytest.mark.gpu
+def test_block_kernel_at_the_tile_and_run_seams(cuda_device):
+    # Two rows of one stream, each a few tiles long, the second after the
+    # gear values of the first's last 31 bytes: the whole stream's mask.
+    bits = 13
+    length = 3 * TILE
+    data, _ = _planted_at_seams(2 * length, bits, 31)
+    for p in (length - 3, length - 1, length + 1, length + 3,
+              length + TILE + 1):
+        plant_candidate(data, p, bits)
+    stream = torch.from_numpy(data).to(cuda_device)
+    rows = stream.view(2, length)
+    halo = torch.cat([torch.zeros((1, HALO), dtype=torch.int64,
+                                  device=cuda_device),
+                      gear_values(rows[:1, -HALO:])])
+    got = block_candidates_cuda(rows, halo, bits)
+    whole = candidate_mask(widen(gear_hashes(stream)), bits)
+    assert torch.equal(got.reshape(-1), whole)
+    assert torch.equal(got, block_candidates(gear_values(rows), halo, bits))
 
 
 @pytest.mark.gpu

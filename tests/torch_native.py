@@ -18,7 +18,8 @@ host may have another package named ``tests``), and this file loads
 ``tests/harness.py`` the same way.
 
 It also holds the gear-CDC inputs that the port's tests and
-``chip_smoke.py`` share: ``plant_candidate`` and ``dense_pair``.
+``chip_smoke.py`` share: ``plant_candidate``, ``seam_plants``,
+``plant_wide``, ``wide_seam_plants`` and ``dense_pair``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import time
 
 import numpy as np
 
+from fastdfs_tpu_torch.ops.cuda_gear import RUN, TILE
 from fastdfs_tpu_torch.ops.gear_cdc import GEAR_TABLE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -187,6 +189,48 @@ def plant_candidate(buf: np.ndarray, p: int, avg_bits: int) -> None:
                if p - k >= 0)
     low = (g[:, None] + (g[None, :] << 1) + rest) & ((1 << avg_bits) - 1)
     buf[p], buf[p - 1] = np.argwhere(low == 0)[0]
+
+
+def seam_plants(size: int) -> list[int]:
+    """Positions in the first window and on both sides of the gear
+    kernel's thread-run and tile seams (``cuda_gear.RUN``, ``TILE``)
+    below ``size``, in increasing order and two or more apart."""
+    planted = list(range(1, 32, 2))
+    for j in range(1, 9):
+        planted += [RUN * j - 1, RUN * j + 1]
+    for j in range(1, size // TILE + 1):
+        planted += [TILE * j + d for d in (-3, -1, 1, 3)]
+    return sorted(p for p in set(planted) if p < size)
+
+
+def plant_wide(buf: np.ndarray, p: int, avg_bits: int) -> None:
+    """Set ``buf[p - avg_bits + 1 .. p]`` so that position ``p`` is a cut
+    candidate at any ``avg_bits`` (``p >= avg_bits - 1``): bit j of the
+    hash at ``p`` is bit j of the terms of the j bytes after
+    ``buf[p - j]`` plus the low bit of that byte's gear value, so one
+    byte a bit, from bit 0 up, clears them all.  Planting in increasing
+    order keeps earlier plants ``avg_bits`` or more apart intact."""
+    g = GEAR_TABLE.astype(np.int64)
+    parity = [np.flatnonzero(g & 1 == b) for b in (0, 1)]
+    h = 0
+    for j in range(avg_bits):
+        x = int(parity[(h >> j) & 1][(p + j) % len(parity[0])])
+        buf[p - j] = x
+        h += int(g[x]) << j
+    assert h & ((1 << avg_bits) - 1) == 0
+
+
+def wide_seam_plants(size: int, avg_bits: int) -> list[int]:
+    """Positions for ``plant_wide`` below ``size``, ``avg_bits`` or more
+    apart: the first window's last position, the first positions of
+    thread runs (whose windows reach back into the bytes a thread rolls
+    before its run) and both sides of each tile seam."""
+    planted = [avg_bits - 1]
+    for j in range(1, 9):
+        planted.append(RUN * j + (0, 1, 5, -1)[j % 4])
+    for j in range(1, size // TILE + 1):
+        planted += [TILE * j - (j % 2), TILE * j + 33]
+    return sorted(p for p in planted if p < size)
 
 
 def dense_pair(avg_bits: int) -> tuple[int, int]:
