@@ -58,10 +58,16 @@ before the last line):
 6. Streaming: phase 2's segment as padded ``(256, 65536)`` batches
    through ``sha1_batch_cuda`` with ``ops.streaming.stream_batches``, in
    order and equal to direct calls and hashlib, timed at depth 1 and 2.
-7. Reed-Solomon: a seeded 64 MB stripe encoded on the card at RS(4,2),
-   RS(10,4) and RS(32,8) (the storage config's clamp), each parity equal
-   to ``gf_matmul_np``, then rebuilt on the card from the last k of the
-   k + m shards; the median ms of encode and rebuild beside the bound.
+7. Reed-Solomon on the GF(2^8) kernel (``csrc/gf_matmul.cu``): a seeded
+   64 MB stripe encoded on the card at RS(4,2), RS(10,4) and RS(32,8)
+   (the storage config's clamp), each parity equal to ``gf_matmul_np``,
+   then rebuilt on the card from the last k of the k + m shards (a
+   ``torch.cat`` of a view and the parity), each a counted main-path run
+   of one launch; the kernel against its plain twin on each product, at
+   shard lengths 0, 1, 3, 17 and 4097, on row and column views, rows past
+   32 and a matrix of every byte value; the median ms of encode and
+   rebuild beside the bound and the plain twin's, and the device kernels
+   an encode runs.
 8. ``parallel/`` with every virtual rank on the one card: the ingest step
    over a (2, 2, 2) mesh and over one rank on two seeded 64 MB streams
    (cut candidates planted at the block seam, the gear kernel's run and
@@ -76,10 +82,13 @@ before the last line):
    and 5 bytes read from on and off a 16-byte boundary and on rows
    planted at avg_bits 17, 18 and 32 (timed on the whole streams), and
    the index kernel
-   on the step's queries x 65,536 rows and on small odd shapes, against
-   their plain twins, bit for bit.  Times of both steps, and of the
-   stage-1 CDC and the index query on their kernels beside their plain
-   twins and bounds.
+   on the step's queries x 65,536 rows and on small odd shapes, and the
+   stage-4 kernel (``csrc/minhash_sig.cu``) on a dp rank's real survivor
+   vectors at each tp rank's 32 permutations, at 64 and at P = 1, 7, 33
+   and 100 with all-EMPTY rows, against their plain twins, bit for bit.
+   Times of both steps (the 8-rank step also with stage 4 swapped back
+   to its plain twin), and of the stage-1 CDC, the index query and stage
+   4 on their kernels beside their plain twins and bounds.
 9. The live system: ``fdfs_storaged`` (built with ``fdfs_trackerd`` if
    the checkout has neither, through ``tests/torch_native.py``) with
    ``dedup_mode = sidecar`` on the port's
@@ -113,12 +122,13 @@ before the last line):
    live.  Wall per 64 MB upload and the stitched timeline.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-5, 6, 8, 9 and 10 (each counted from 0 just before its run); launches made only
-to time or compare a kernel are not counted.  Those runs must call no
-plain twin on a CUDA tensor (``gear_window.cuda_calls`` and
-``index_best.cuda_calls`` stay 0).  The second-to-last line is a JSON
+5, 6, 7, 8, 9 and 10 (each counted from 0 just before its run); launches
+made only to time or compare a kernel are not counted.  Those runs must
+call no plain twin on a CUDA tensor (the ``cuda_calls`` of
+``gear_window``, ``index_best``, ``rs_code.gf_matmul_torch`` and
+``minhash.signature_tiles`` stay 0).  The second-to-last line is a JSON
 object with one entry per kernel (the gear kernel's two forms as two
-entries; the three that replace jitted XLA, not a Pallas kernel, say so
+entries; the five that replace jitted XLA, not a Pallas kernel, say so
 in ``replaces_kind``); the last is ``{"ok": true, "device": {...}}``.
 Without a CUDA card the script exits non-zero and prints no result.
 """
@@ -163,8 +173,10 @@ from fastdfs_tpu_torch.ops.cuda_gear import (RUN, TILE,
                                              block_candidates_cuda,
                                              gear_candidates_cuda)
 from fastdfs_tpu_torch.ops import gear_cdc as gear_cdc_mod
+from fastdfs_tpu_torch.ops.cuda_gf import gf_matmul_cuda
 from fastdfs_tpu_torch.ops.cuda_index import index_best, index_best_cuda
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
+                                                signature_tiles_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
@@ -179,6 +191,7 @@ from fastdfs_tpu_torch.ops.streaming import stream_batches
 from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
                                         make_fingerprint_step,
                                         make_ingest_step, make_mesh)
+from fastdfs_tpu_torch.parallel import ingest_step as ingest_step_mod
 from fastdfs_tpu_torch.parallel.ingest_step import HALO, block_candidates
 from fastdfs_tpu_torch.sidecar import DedupSidecar
 from fastdfs_tpu_torch.tools.timing import card_line, median_ms, once_ms
@@ -434,9 +447,11 @@ class KernelRecord:
 
 
 # The plain twins' calls on a CUDA tensor: every eager gear pass goes
-# through gear_window, the plain index query is index_best.  The card's
-# paths make none.
-PLAIN_TWINS = (gear_window, index_best)
+# through gear_window, the plain index query is index_best, the plain
+# GF(2^8) product gf_matmul_torch and the plain stage 4 signature_tiles.
+# The card's paths make none.
+PLAIN_TWINS = (gear_window, index_best, rs_code.gf_matmul_torch,
+               minhash.signature_tiles)
 
 
 def reset_plain() -> None:
@@ -1159,39 +1174,127 @@ def phase_streaming(dev, card: str, seg: bytes, cuts: list[int]) -> int:
     return launches
 
 
-def phase_rs(dev, card: str) -> None:
+GF_EDGE_LENGTHS = (0, 1, 3, 17, 4097)
+
+
+def check_gf(rec, mat: np.ndarray, shards: torch.Tensor, what: str
+             ) -> None:
+    """The GF kernel against its plain twin on the same inputs, bit for
+    bit."""
+    got = gf_matmul_cuda(mat, shards)
+    want = rs_code.gf_matmul_torch(mat, shards)
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) \
+        if got.numel() else 0
+    rec.max_abs_err = max(rec.max_abs_err, err)
+    check(err == 0 and got.shape == want.shape,
+          f"GF kernel != plain twin on {what}")
+
+
+def check_gf_edges(dev, rng, rec) -> None:
+    """The GF kernel at shard lengths 0, 1, 3, 17 and 4097, on a
+    non-contiguous survivor view and on columns off a 4-byte boundary,
+    with a matrix that holds every byte value (0 and 1 included), rows
+    past 32 and rows and k at the field's 255."""
+    every = (np.arange(40 * 7) % 256).astype(np.uint8).reshape(40, 7)
+    for length in GF_EDGE_LENGTHS:
+        for rows, k in ((2, 4), (8, 32), (32, 32), (40, 7)):
+            mat = (every if (rows, k) == (40, 7) else
+                   rng.integers(0, 256, (rows, k), dtype=np.uint8))
+            shards = torch.from_numpy(rng.integers(
+                0, 256, (k, length), dtype=np.uint8)).to(dev)
+            check_gf(rec, mat, shards, f"({rows} x {k}) x {length} B")
+    d = torch.from_numpy(rng.integers(0, 256, (20, 4099),
+                                      dtype=np.uint8)).to(dev)
+    pm = rs_code.parity_matrix(10, 4)
+    for view, what in ((d[::2], "every other row"),
+                       (d[4:14, 3:4000], "rows 4-13 from column 3")):
+        check_gf(rec, pm, view, what)
+    for rows, k in ((255, 1), (1, 255), (64, 4)):
+        mat = (np.arange(rows * k) % 256).astype(np.uint8).reshape(rows, k)
+        shards = torch.from_numpy(rng.integers(0, 256, (k, 1031),
+                                               dtype=np.uint8)).to(dev)
+        check_gf(rec, mat, shards, f"({rows} x {k}), every byte value")
+
+
+def phase_rs(dev, card: str, rec) -> int:
+    """Phase 7; returns the GF kernel's launches in its main-path runs
+    (encode, then rebuild from the last k shards, through ``rs_code``,
+    each geometry counted from 0 just before it)."""
     rng = np.random.default_rng(SEED + 4)
     stripe = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
     print(f"phase 7: Reed-Solomon on the card, a seeded {SEGMENT >> 20} MB "
-          f"stripe (ms: CUDA-event median of 10 calls)")
-    reset_plain()
+          f"stripe, on the GF kernel (ms: CUDA-event median of 10 calls of "
+          f"rs_encode or rs_reconstruct; plain twin: median of 3 calls of "
+          f"gf_matmul_torch on the same product)")
+    launches = 0
     for k, m in ((4, 2), (10, 4), (32, 8)):
         shards = rs_code.split_stripe(stripe, k)
         length = shards.shape[1]
         d = torch.from_numpy(shards).to(dev)
-        parity = rs_code.rs_encode(d, m)
-        check(parity.device == d.device, "parity left the card")
-        check(np.array_equal(parity.cpu().numpy(), rs_code.gf_matmul_np(
-            rs_code.parity_matrix(k, m), shards)),
-            f"RS({k},{m}) parity != gf_matmul_np")
         present = list(range(m, k + m))                  # first m lost
-        survivors = torch.cat([d[m:], parity])
-        check(torch.equal(rs_code.rs_reconstruct(survivors, present, k, m),
-                          d), f"RS({k},{m}) rebuild != data")
+
+        def encode_and_rebuild():
+            parity = rs_code.rs_encode(d, m)
+            survivors = torch.cat([d[m:], parity])
+            return parity, survivors, rs_code.rs_reconstruct(
+                survivors, present, k, m)
+
+        (parity, survivors, back), n = counted(encode_and_rebuild)
+        check(n == {"gf_matmul_cuda": 2},
+              f"RS({k},{m}) encode and rebuild launched {n}")
+        launches += n["gf_matmul_cuda"]
+        check(parity.device == d.device, "parity left the card")
+        pm = rs_code.parity_matrix(k, m)
+        dm = rs_code.decode_matrix(k, m, present)
+        check(np.array_equal(parity.cpu().numpy(),
+                             rs_code.gf_matmul_np(pm, shards)),
+              f"RS({k},{m}) parity != gf_matmul_np")
+        check(torch.equal(back, d), f"RS({k},{m}) rebuild != data")
+        check_gf(rec, pm, d, f"RS({k},{m}) encode")
+        check_gf(rec, dm, survivors, f"RS({k},{m}) rebuild")
         enc_ms = median_ms(lambda: rs_code.rs_encode(d, m), 10)
         dec_ms = median_ms(lambda: rs_code.rs_reconstruct(
             survivors, present, k, m), n=10)
-        _, kernels = device_profile(lambda: rs_code.rs_encode(d, m))
-        launches = sum(c for key, (_, c) in kernels.items()
+        enc_plain = median_ms(lambda: rs_code.gf_matmul_torch(pm, d), 3)
+        dec_plain = median_ms(
+            lambda: rs_code.gf_matmul_torch(dm, survivors), 3)
+        _, kernels = device_profile(lambda: rs_code.rs_encode(d, m),
+                                    (("gf_matmul_kernel", 1),))
+        kernel_n = sum(c for key, (_, c) in kernels.items()
                        if not is_copy(key))
         enc_bound, enc_by = gf_bound(m, k, length)
         dec_bound, dec_by = gf_bound(k, k, length)
-        print(f"  RS({k},{m}), shards of {length} B: parity == gf_matmul_np, "
-              f"rebuilt from the last {k} shards == data; encode "
-              f"{enc_ms:.4f} ms ({launches} device kernels; bound "
-              f"{enc_bound:.4f} by {enc_by}), rebuild {dec_ms:.4f} ms "
-              f"(bound {dec_bound:.4f} by {dec_by})  [{card}]")
-    check_no_plain("Reed-Solomon")
+        print(f"  RS({k},{m}), shards of {length} B: parity == gf_matmul_np "
+              f"and the plain twin, rebuilt from the last {k} shards == "
+              f"data; one GF launch each; encode {enc_ms:.4f} ms "
+              f"({kernel_n if kernels else 'not measured'} device kernels "
+              f"a call; bound {enc_bound:.4f} by {enc_by}; plain twin "
+              f"{enc_plain:.4f}), rebuild {dec_ms:.4f} ms (bound "
+              f"{dec_bound:.4f} by {dec_by}; plain twin {dec_plain:.4f})  "
+              f"[{card}]")
+        if (k, m) == (32, 8):
+            # The record times the kernel's wrapper on the rebuild's
+            # product; rs_reconstruct also inverts the surviving rows on
+            # the host (Gauss-Jordan, decode_matrix).
+            def fn():
+                return gf_matmul_cuda(dm, survivors)
+            rec.ms, rec.plain_ms = median_ms(fn, 10), dec_plain
+            rec.bound_ms, rec.bound_by = dec_bound, dec_by
+            rec.device_ms = device_ms(fn, "gf_matmul_kernel")
+            t0 = time.monotonic()
+            for _ in range(10):
+                rs_code.decode_matrix(k, m, present)
+            inv_ms = (time.monotonic() - t0) * 1e2
+            print(f"  RS(32,8) rebuild's product on the GF kernel: "
+                  f"{rec.ms:.4f} ms a call (CUDA events), "
+                  f"{fmt_ms(rec.device_ms)} ms on the device; the host's "
+                  f"decode_matrix in rs_reconstruct {inv_ms:.3f} ms "
+                  f"(host clock, mean of 10)  [{card}]")
+    check_gf_edges(dev, rng, rec)
+    print(f"  GF kernel == plain twin at lengths "
+          f"{', '.join(map(str, GF_EDGE_LENGTHS))}, on row and column "
+          f"views, rows past 32 and on a matrix of every byte value")
+    return launches
 
 
 # Every kernel wrapper's launch counter, and which kernel each launches.
@@ -1199,7 +1302,8 @@ SHA1_WRAPPERS = (sha1_ragged_cuda, sha1_batch_cuda)
 SKETCH_WRAPPERS = (sketch_ragged_cuda, survivor_ragged_cuda,
                    survivor_segmin_cuda, minhash_batch_cuda)
 WRAPPERS = SHA1_WRAPPERS + SKETCH_WRAPPERS + (
-    gear_candidates_cuda, block_candidates_cuda, index_best_cuda)
+    gear_candidates_cuda, block_candidates_cuda, index_best_cuda,
+    gf_matmul_cuda, signature_tiles_cuda)
 
 
 def counted(fn):
@@ -1236,8 +1340,8 @@ def plain_signatures(dev, stream: torch.Tensor, cuts: list[int]) -> np.ndarray:
     return sig.view(torch.int32).cpu().numpy().view(np.uint32)
 
 
-def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index
-                      ) -> None:
+def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index,
+                      rec_sig) -> None:
     """The ingest step over a (2, 2, 2) mesh of virtual ranks and over one
     rank, at full width: two 64 MB streams, one stream's chunks as padded
     rows, a 65,536-row index."""
@@ -1285,6 +1389,7 @@ def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index
         for name, k in launches.items():
             total[name] = total.get(name, 0) + k
     check(n8 == {"sha1_batch_cuda": RANKS, "survivor_segmin_cuda": RANKS,
+                 "signature_tiles_cuda": RANKS,
                  "block_candidates_cuda": RANKS, "index_best_cuda": RANKS},
           f"8-rank step launched {n8}")
     check(n1 == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1,
@@ -1339,17 +1444,31 @@ def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index
 
     check_block_kernel(d_streams, sp, bits, rec_block)
     check_index_kernel(dev, rng, sig8.view(torch.int32), d_index, rec_index)
+    check_sig_kernel(dev, rng, d_rows[:n // dp], d_lens[:n // dp],
+                     mesh8.shape["tp"], rec_sig)
     ms8 = median_ms(lambda: step8(*in8), 3)
     ms1 = median_ms(lambda: step1(*in1), 3)
+    # The 8-rank step with stage 4 on its plain twin, as it ran before
+    # the stage-4 kernel: the same call, the same inputs.
+    kernel = ingest_step_mod.signature_tiles_cuda
+    ingest_step_mod.signature_tiles_cuda = lambda z, words: \
+        minhash.signature_tiles(z, words.shape[1],
+                                minhash.perms_from_words(words))
+    try:
+        ms8_plain = median_ms(lambda: step8(*in8), 3)
+    finally:
+        ingest_step_mod.signature_tiles_cuda = kernel
     print(f"  ingest step, CUDA-event median of 3: 8 ranks on one card "
-          f"{ms8:.2f} ms, 1 rank {ms1:.2f} ms  [{card}]")
+          f"{ms8:.2f} ms ({ms8_plain:.2f} with stage 4 on its plain twin), "
+          f"1 rank {ms1:.2f} ms  [{card}]")
     print(f"  stage-1 CDC of 2 x {SEGMENT >> 20} MB: gear kernel (dense) "
           f"{rec_block.ms:.4f} ms a call (CUDA events), "
           f"{fmt_ms(rec_block.device_ms)} ms on the device, its plain twin "
           f"(the eager pass before) {rec_block.plain_ms:.3f} ms, bound "
           f"{rec_block.bound_ms:.4f} ms "
           f"by {rec_block.bound_by}; index query ({n} x {INDEX_ROWS} x 64): "
-          f"index kernel {rec_index.ms:.3f} ms, its plain twin "
+          f"index kernel {rec_index.ms:.3f} ms a call (CUDA events), "
+          f"{fmt_ms(rec_index.device_ms)} ms on the device, its plain twin "
           f"{rec_index.plain_ms:.3f} ms, bound {rec_index.bound_ms:.3f} ms "
           f"by {rec_index.bound_by}  [{card}]")
 
@@ -1435,9 +1554,71 @@ def check_index_kernel(dev, rng, sigs: torch.Tensor, index: torch.Tensor,
         check(torch.equal(got, want), f"index kernel != plain twin at "
               f"{tuple(q.shape)} x {tuple(ix.shape)}")
     rec.ms = median_ms(lambda: index_best_cuda(sigs, index), 5)
+    rec.device_ms = device_ms(lambda: index_best_cuda(sigs, index),
+                              "index_count_kernel", 10)
     rec.plain_ms = median_ms(lambda: index_best(sigs, index), 3)
     rec.bound_ms, rec.bound_by = index_bound(sigs.shape[0], index.shape[0],
                                              sigs.shape[1])
+
+
+def stage4_bound(n: int, p: int, survivors: int) -> tuple[float, str]:
+    """(ms, by) of stage 4 over n survivor vectors and p permutations:
+    each z word and permutation word read once and 4 p bytes written a
+    row, against STAGE4_OPS_PER_SURVIVOR_PERM per non-EMPTY entry and
+    permutation."""
+    t_bytes = float(4 * minhash.NUM_SEGMENTS * n + 8 * p + 4 * n * p) \
+        / HBM_BYTES_PER_S
+    t_ops = float(survivors * p * STAGE4_OPS_PER_SURVIVOR_PERM) \
+        / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_sig_kernel(dev, rng, rows: torch.Tensor, lens: torch.Tensor,
+                     tp: int, rec) -> None:
+    """The stage-4 kernel on one dp rank's real survivor vectors (the
+    step's rows, through the sketch kernel) at each tp rank's slice of
+    the 64 permutations and at all 64 (where it must equal the fused
+    kernel's signatures), and at P = 1, 7, 33 and 100 with all-EMPTY
+    rows, against its plain twin, bit for bit; timed at a tp rank's
+    slice, the call each rank of the 8-rank step makes."""
+    z = survivor_segmin_cuda(rows, lens).view(torch.int32)
+    n = z.shape[0]
+    words = minhash.perm_words(64, dev)
+    p_local = 64 // tp
+    slices = [words[:, t * p_local:(t + 1) * p_local].contiguous()
+              for t in range(tp)]
+    z_odd = z.clone()
+    z_odd[torch.from_numpy(rng.choice(n, 64, replace=False)).to(dev)] = -1
+    cases = [(z, w, f"tp rank {t}'s {p_local} permutations")
+             for t, w in enumerate(slices)]
+    cases.append((z, words, "all 64 permutations"))
+    cases += [(z_odd, minhash.perm_words(p, dev), f"P = {p}, 64 rows EMPTY")
+              for p in (1, 7, 33, 100)]
+    for zz, w, what in cases:
+        got = signature_tiles_cuda(zz, w).view(torch.int32)
+        want = minhash.signature_tiles(zz, w.shape[1],
+                                       minhash.perms_from_words(w),
+                                       PLAIN_ROW_TILE).view(torch.int32)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        check(err == 0, f"stage-4 kernel != plain twin at {what}")
+    fused = minhash_batch_cuda(rows, lens).view(torch.int32)
+    check(torch.equal(signature_tiles_cuda(z, words).view(torch.int32), fused),
+          "stage-4 kernel at 64 permutations != the fused sketch kernel")
+    def fn():
+        return signature_tiles_cuda(z, slices[0])
+    rec.ms = median_ms(fn, 20)
+    rec.device_ms = device_ms(fn, "minhash_sig_kernel")
+    rec.plain_ms = median_ms(lambda: minhash.signature_tiles(
+        z, p_local, minhash.perms_from_words(slices[0]), PLAIN_ROW_TILE), 3)
+    survivors = int((z != -1).sum())
+    rec.bound_ms, rec.bound_by = stage4_bound(n, p_local, survivors)
+    print(f"  stage-4 kernel on {n} rows' survivor vectors ({survivors} "
+          f"non-EMPTY) x {p_local} permutations: {rec.ms:.4f} ms a call "
+          f"(CUDA events), {fmt_ms(rec.device_ms)} ms on the device, its "
+          f"plain twin {rec.plain_ms:.3f} ms, bound {rec.bound_ms:.4f} ms "
+          f"by {rec.bound_by}; == plain twin at each tp slice, at 64 (and "
+          f"== the fused kernel) and at P = 1, 7, 33, 100 with EMPTY rows")
 
 
 def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
@@ -1508,6 +1689,7 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
                                                       devices=[dev] * RANKS))
     check(launches2 == {"sha1_batch_cuda": RANKS,
                         "survivor_segmin_cuda": RANKS,
+                        "signature_tiles_cuda": RANKS,
                         "block_candidates_cuda": RANKS,
                         "index_best_cuda": RANKS},
           f"dryrun_multichip launched {launches2}")
@@ -1519,21 +1701,23 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
 
 
 def phase_parallel(dev, card: str, seg: bytes, cuts: list[int], rec_block,
-                   rec_index) -> tuple[int, int, int, int]:
-    """Phase 8; returns the SHA-1, sketch, dense gear and index launches
-    of its main-path runs (each counted from 0 just before it)."""
+                   rec_index, rec_sig) -> tuple[int, int, int, int, int]:
+    """Phase 8; returns the SHA-1, sketch, dense gear, index and stage-4
+    launches of its main-path runs (each counted from 0 just before
+    it)."""
     print(f"phase 8: parallel/, the engine's fan-out and the entry on the "
           f"card; every virtual rank sits on {dev}, so no time below says "
           f"anything about scaling across cards")
     total: dict[str, int] = {}
-    check_ingest_step(dev, card, total, rec_block, rec_index)
+    check_ingest_step(dev, card, total, rec_block, rec_index, rec_sig)
     check_fan_outs(dev, card, seg, cuts, total)
     print(f"  phase 8 launches by wrapper: {total}; no plain twin on the "
           f"card in any of these runs")
     return (sum(total.get(f.__name__, 0) for f in SHA1_WRAPPERS),
             sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS),
             total.get("block_candidates_cuda", 0),
-            total.get("index_best_cuda", 0))
+            total.get("index_best_cuda", 0),
+            total.get("signature_tiles_cuda", 0))
 
 
 # Phase 9: the live system.
@@ -2170,7 +2354,13 @@ def main() -> int:
                              "fastdfs_tpu_torch/csrc/index_query.cu",
                              "fastdfs_tpu/parallel/ingest_step.py:128-133",
                              xla=True)
-    records = (rec_sha1, rec_sketch, rec_gear, rec_block, rec_index)
+    rec_gf = KernelRecord("gf_matmul", "fastdfs_tpu_torch/csrc/gf_matmul.cu",
+                          "fastdfs_tpu/ops/rs_code.py:170", xla=True)
+    rec_sig = KernelRecord("minhash_sig",
+                           "fastdfs_tpu_torch/csrc/minhash_sig.cu",
+                           "fastdfs_tpu/ops/minhash.py:127", xla=True)
+    records = (rec_sha1, rec_sketch, rec_gear, rec_block, rec_index, rec_gf,
+               rec_sig)
     marks = [time.monotonic()]
     seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch, rec_gear)
     marks.append(time.monotonic())
@@ -2185,10 +2375,11 @@ def main() -> int:
     marks.append(time.monotonic())
     rec_sha1.launches += phase_streaming(dev, card, seg, cuts)
     marks.append(time.monotonic())
-    phase_rs(dev, card)
+    rec_gf.launches = phase_rs(dev, card, rec_gf)
     marks.append(time.monotonic())
-    sha1_n, sketch_n, rec_block.launches, rec_index.launches = \
-        phase_parallel(dev, card, seg, cuts, rec_block, rec_index)
+    (sha1_n, sketch_n, rec_block.launches, rec_index.launches,
+     rec_sig.launches) = phase_parallel(dev, card, seg, cuts, rec_block,
+                                        rec_index, rec_sig)
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
     marks.append(time.monotonic())

@@ -36,12 +36,12 @@ from fastdfs_tpu_torch.dedup.index import ExactDigestIndex, MinHashLSHIndex
 from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, bucket_lens, chunk_table,
                                    gear_cdc, pack_chunk_table, resolve_device)
 from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
+                                                signature_tiles_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
-                                           perm_tensors, perm_words,
-                                           signature_tiles, sketch_ragged)
+                                           perm_words, survivor_ragged)
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
 from fastdfs_tpu_torch.parallel.mesh import cuda_devices
 
@@ -56,8 +56,8 @@ class DedupConfig:
     lsh_bands: int = 16
     near_dup_threshold: float = 0.5
     near_dup_top_k: int = 5
-    # Rows per tile of the plain twins (CPU path and the P != 64 or
-    # shingle != 5 sketch); the CUDA kernels take a segment whole.
+    # Rows per tile of the plain twins (CPU path and the shingle != 5
+    # sketch's stages 1-3); the CUDA kernels take a segment whole.
     row_tile: int = 256
     # Accepted for field parity with the JAX package's DedupConfig and
     # otherwise ignored: the port routes by device (hand kernels on CUDA,
@@ -165,13 +165,12 @@ class DedupEngine:
         self.near = MinHashLSHIndex(self.config.num_perms, self.config.lsh_bands)
         # The sketch kernel is specialized to k = 5 and 64 permutations.
         # Another permutation count runs stages 1-3 in the kernel and
-        # stage 4 as the plain twin; another shingle width runs the plain
-        # twin throughout, on the same device.
+        # stage 4 in the stage-4 kernel; another shingle width runs stages
+        # 1-3 as the plain twin, on the same device.
         cfg = self.config
         self._fused = (cfg.shingle == KERNEL_SHINGLE
                        and cfg.num_perms == KERNEL_PERMS)
-        make = perm_words if self._fused else perm_tensors
-        self._consts = {dev: make(cfg.num_perms, dev)
+        self._consts = {dev: perm_words(cfg.num_perms, dev)
                         for dev in set(self.devices)}
         self._staging = threading.local()
 
@@ -261,14 +260,12 @@ class DedupEngine:
                                out[:, 5:], cfg.row_tile)
         else:
             if cfg.shingle == KERNEL_SHINGLE:
-                sig = signature_tiles(
-                    survivor_ragged_cuda(seg, d_off, d_len, d_order,
-                                         cfg.row_tile),
-                    cfg.num_perms, consts, cfg.row_tile)
+                z = survivor_ragged_cuda(seg, d_off, d_len, d_order,
+                                         cfg.row_tile)
             else:
-                sig = sketch_ragged(seg, d_off, d_len, cfg.num_perms,
-                                    cfg.shingle, consts, cfg.row_tile)
-            out[:, 5:] = sig.view(torch.int32)
+                z = survivor_ragged(seg, d_off, d_len, cfg.shingle,
+                                    cfg.row_tile)
+            signature_tiles_cuda(z, consts, out[:, 5:], cfg.row_tile)
         return out
 
     # -- pure compute ------------------------------------------------------

@@ -45,6 +45,13 @@ _SIGNATURES = {
     # sigs, index, n, m, p, sms, best, stream
     "fdfs_index_best": [_VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, _VP, _VP],
+    # table, matrix, rows, k, shards, shard_stride, L, out, out_stride, stream
+    "fdfs_gf_matmul": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP,
+                       ctypes.c_longlong, ctypes.c_longlong, _VP,
+                       ctypes.c_longlong, _VP],
+    # z, z_stride, n, words, p, sig, sig_stride, stream
+    "fdfs_minhash_sig": [_VP, ctypes.c_longlong, ctypes.c_int, _VP,
+                         ctypes.c_int, _VP, ctypes.c_longlong, _VP],
 }
 
 

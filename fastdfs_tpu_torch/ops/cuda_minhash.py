@@ -14,27 +14,35 @@ and writing only the ``(N, 64)`` signatures (and ``z`` when asked for).
 - ``minhash_batch_cuda`` and ``survivor_segmin_cuda``: the padded
   ``(N, L)`` entries, thin adapters over the same kernel with
   ``offsets = i * L`` (the second asks the kernel for ``z``).
+- ``signature_tiles_cuda``: stage 4 alone, over survivor vectors ``z``
+  and the permutation words of any count or of a tensor-parallel rank's
+  slice, on the kernel ``csrc/minhash_sig.cu`` (one block a row, the
+  survivors compacted into shared memory).  It replaces the reference's
+  XLA stage 4 (``fastdfs_tpu/ops/minhash.py:minhash_signature``, and the
+  ingest step's ``vmap(one_sig)``) wherever the fused kernel's 64
+  permutations do not apply: the ingest step's ``tp > 1`` ranks, the
+  fingerprint step and the engine at another count.  Bound: 4 KiB read a
+  row, against two instructions per survivor and permutation.
 
 The kernel is specialised to k = 5 and 64 permutations.  Bound on an
 H100: about 6 integer instructions per byte position against one byte
 read, so operations and HBM bytes bound it about equally (PERF.md gives
 the measured time beside it).  On a CPU tensor a wrapper returns its
 plain twin (``ops.minhash.sketch_ragged``, ``minhash_batch``,
-``survivor_segmin``); on a CUDA tensor it launches the kernel or raises.
+``survivor_segmin``, ``signature_tiles``); on a CUDA tensor it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fastdfs_tpu_torch.ops import (_build, check_batch, check_out,
-                                   check_ragged, widen)
+from fastdfs_tpu_torch.ops import _build, check_batch, check_out, check_ragged
 from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
-                                           EMPTY, NUM_SEGMENTS,
-                                           minhash_batch, minhash_signature,
+                                           NUM_SEGMENTS, minhash_batch,
                                            perm_words, perms_from_words,
-                                           sketch_ragged, survivor_ragged,
-                                           survivor_segmin)
+                                           signature_tiles, sketch_ragged,
+                                           survivor_ragged, survivor_segmin)
 
 KERNEL_PERMS = 64
 KERNEL_SHINGLE = 5
@@ -100,7 +108,7 @@ def survivor_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
     through its optional ``z`` output: uint32 ``(N, NUM_SEGMENTS)``,
     bit-identical to ``ops.minhash.survivor_ragged`` (k = 5).  The
     engine's path for a permutation count other than 64, whose stage 4
-    then runs as the plain ``signature_tiles``."""
+    then runs on ``signature_tiles_cuda``."""
     check_ragged(seg, offsets, lens, order)
     if seg.device.type == "cpu":
         return survivor_ragged(seg, offsets, lens, KERNEL_SHINGLE, row_tile)
@@ -150,20 +158,64 @@ def survivor_segmin_cuda(data: torch.Tensor, lengths: torch.Tensor,
 survivor_segmin_cuda.launches = 0
 
 
+def signature_tiles_cuda(z: torch.Tensor, words: torch.Tensor,
+                         out: torch.Tensor | None = None,
+                         row_tile: int = 256) -> torch.Tensor:
+    """Stage 4 over survivor vectors: uint32 (or int32 bits) ``(N,
+    NUM_SEGMENTS)`` ``z`` and int32 ``(2, P)`` permutation words (``a``
+    then ``b``: ``perm_words``, or a rank's columns of it) -> uint32 ``(N,
+    P)``, bit-identical to ``ops.minhash.signature_tiles``: the min over
+    each row's non-EMPTY entries of ``a_j z + b_j`` mod 2**32, all-EMPTY
+    for a row with none.  ``z`` needs unit column stride only.  ``out``,
+    if given, is an int32 ``(N, P)`` view with unit column stride.
+    ``row_tile`` only sizes the plain twin's tiles on the CPU."""
+    if z.dtype == torch.uint32:
+        z = z.view(torch.int32)
+    if z.dtype != torch.int32 or z.ndim != 2 or z.shape[1] != NUM_SEGMENTS \
+            or (z.shape[0] and z.stride(1) != 1):
+        raise ValueError(f"z must be uint32 (N, {NUM_SEGMENTS}) with unit "
+                         f"column stride, got {z.dtype} {tuple(z.shape)}")
+    if z.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {z.device}")
+    if (words.dtype != torch.int32 or words.ndim != 2 or words.shape[0] != 2
+            or words.shape[1] < 1 or words.device != z.device
+            or not words.is_contiguous()):
+        raise ValueError(f"perm words must be contiguous int32 (2, P >= 1) "
+                         f"on {z.device}, got {words.dtype} "
+                         f"{tuple(words.shape)} on {words.device}")
+    n, p = z.shape[0], words.shape[1]
+    if out is None:
+        out = torch.empty((n, p), dtype=torch.int32, device=z.device)
+    check_out(out, n, p, z.device)
+    if z.device.type == "cpu":
+        out.copy_(signature_tiles(z, p, perms_from_words(words),
+                                  row_tile).view(torch.int32))
+    elif n:
+        with torch.cuda.device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            rc = _build.library().fdfs_minhash_sig(
+                z.data_ptr(), z.stride(0), n, words.data_ptr(), p,
+                out.data_ptr(), out.stride(0), stream)
+        _build.check_launch(rc, "minhash_sig")
+        signature_tiles_cuda.launches += 1
+    return out.view(torch.uint32)
+
+
+signature_tiles_cuda.launches = 0
+
+
 def minhash_batch_cuda(data: torch.Tensor, lengths: torch.Tensor,
-                       num_perms: int = DEFAULT_PERMS, perms=None
-                       ) -> torch.Tensor:
+                       num_perms: int = DEFAULT_PERMS) -> torch.Tensor:
     """Kernel-path twin of ``ops.minhash.minhash_batch`` (k = 5): uint8
     ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, num_perms)``.  With 64
     permutations the fused kernel signs the rows; with another count it
-    yields ``z`` and stage 4 runs as the plain ``minhash_signature`` with
-    ``perms`` (``ops.minhash.perm_tensors``)."""
+    yields ``z`` and stage 4 runs on ``signature_tiles_cuda``."""
     check_batch(data, lengths)
     if data.device.type == "cpu":
-        return minhash_batch(data, lengths, num_perms, DEFAULT_SHINGLE, perms)
+        return minhash_batch(data, lengths, num_perms, DEFAULT_SHINGLE)
     if num_perms != KERNEL_PERMS:
-        z = widen(survivor_segmin_cuda(data, lengths))
-        return minhash_signature(z, num_perms, z != int(EMPTY), perms)
+        return signature_tiles_cuda(survivor_segmin_cuda(data, lengths),
+                                    perm_words(num_perms, data.device))
     sig = torch.empty((data.shape[0], KERNEL_PERMS), dtype=torch.int32,
                       device=data.device)
     if data.shape[0]:

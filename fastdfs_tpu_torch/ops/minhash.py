@@ -191,7 +191,14 @@ def signature_tiles(z: torch.Tensor, num_perms: int = DEFAULT_PERMS,
                     perms=None, row_tile: int = 256) -> torch.Tensor:
     """Stage 4 over survivor vectors, ``row_tile`` rows at a time (the
     ``(rows, P, 512)`` intermediate stays small): uint32
-    ``(N, NUM_SEGMENTS)`` -> uint32 ``(N, num_perms)``."""
+    ``(N, NUM_SEGMENTS)`` -> uint32 ``(N, num_perms)``.
+
+    The plain twin of ``csrc/minhash_sig.cu``
+    (``cuda_minhash.signature_tiles_cuda``); ``signature_tiles.cuda_calls``
+    counts its calls on a CUDA tensor, which the card's paths leave to the
+    kernel."""
+    if z.device.type == "cuda":
+        signature_tiles.cuda_calls += 1
     if perms is None:
         perms = perm_tensors(num_perms, z.device)
     sig = torch.empty((z.shape[0], num_perms), dtype=torch.int32,
@@ -201,6 +208,9 @@ def signature_tiles(z: torch.Tensor, num_perms: int = DEFAULT_PERMS,
         sig[start:start + row_tile] = minhash_signature(
             zt, num_perms, zt != int(EMPTY), perms).view(torch.int32)
     return sig.view(torch.uint32)
+
+
+signature_tiles.cuda_calls = 0
 
 
 def sketch_ragged(seg: torch.Tensor, offsets: torch.Tensor,

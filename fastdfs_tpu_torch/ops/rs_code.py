@@ -11,18 +11,25 @@ in three disciplines:
 - ``gf_matmul_ref``: serial Python referee (copied).
 - ``gf_matmul_np``: tiled NumPy product-table gather, XOR-reduced over k
   (copied).
-- ``gf_matmul``: plain PyTorch on the caller's device, in place of the
-  reference's XLA ``_gf_matmul_jit`` (rs_code.py:170-206), which is not a
-  Pallas kernel.  The product-table rows of the matrix's coefficients,
-  ``(k, rows, 256)`` uint8 (at most 64 KiB, the whole table's size), go
-  to the device in one copy per call.  torch has no XOR reduction, so the
-  loop runs over the k columns: gather column i's ``(rows, L)`` products
-  at shard i's bytes and ``bitwise_xor_`` them into the output.  No
-  ``(rows, k, L)`` intermediate exists (at k = 32 and a 64 MB stripe it
-  would be 16 GB), and no power-of-two pad: that served XLA's
-  compile-once shapes.  Bound on an H100: ``(k + rows) * L`` bytes over
-  the memory rate, or its table lookups where they take longer
-  (``chip_smoke.py`` computes both; PERF.md has the measured time).
+- ``gf_matmul``: on the caller's device, in place of the reference's
+  XLA ``_gf_matmul_jit`` (rs_code.py:170-206), which is not a Pallas
+  kernel.  A CUDA tensor goes to the hand-written kernel
+  ``ops.cuda_gf.gf_matmul_cuda`` (``csrc/gf_matmul.cu``: the product
+  table and the coefficients in shared memory, one launch per call); a
+  CPU tensor to its plain twin ``gf_matmul_torch``.
+- ``gf_matmul_torch``: the plain PyTorch twin.  The product-table rows
+  of the matrix's coefficients, ``(k, rows, 256)`` uint8 (at most 64 KiB,
+  the whole table's size), go to the shards' device in one copy per
+  call.  torch has no XOR reduction, so the loop runs over the k
+  columns: gather column i's ``(rows, L)`` products at shard i's bytes
+  and ``bitwise_xor_`` them into the output, about 2k device kernels a
+  call.  No ``(rows, k, L)`` intermediate exists (at k = 32 and a 64 MB
+  stripe it would be 16 GB), and no power-of-two pad: that served XLA's
+  compile-once shapes.
+
+Bound on an H100: ``(k + rows) * L`` bytes over the memory rate, or its
+table lookups where they take longer (``chip_smoke.py`` computes both;
+PERF.md has the measured times).
 
 The generator matrix is systematic Cauchy ([I; C] with C[j][i] =
 inv(x_i ^ a_j), x_i = i, a_j = k + j), so every k x k submatrix inverts
@@ -37,7 +44,7 @@ import functools
 import numpy as np
 import torch
 
-from fastdfs_tpu_torch.ops import resolve_device
+from fastdfs_tpu_torch.ops import cuda_gf, resolve_device
 from fastdfs_tpu_torch.ops.gf256 import (GF_EXP, GF_LOG, cauchy_coeff,
                                          gf_inv, gf_mul)
 
@@ -156,9 +163,34 @@ def gf_matmul_np(matrix: np.ndarray, shards: np.ndarray) -> np.ndarray:
     return out
 
 
+def gf_matmul_torch(matrix: np.ndarray, shards: torch.Tensor
+                    ) -> torch.Tensor:
+    """The plain PyTorch twin of ``csrc/gf_matmul.cu``: a host ``(rows,
+    k)`` matrix and uint8 ``(k, L)`` shards -> uint8 ``(rows, L)`` on the
+    shards' device.  ``gf_matmul_torch.cuda_calls`` counts its calls on a
+    CUDA tensor, which the card's paths leave to the kernel."""
+    if shards.device.type == "cuda":
+        gf_matmul_torch.cuda_calls += 1
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    rows, k = matrix.shape
+    dev = shards.device
+    out = torch.zeros((rows, shards.shape[1]), dtype=torch.uint8, device=dev)
+    if shards.shape[1]:
+        # prods[i, r, b] = M[r, i] * b: column i's products for every row.
+        prods = torch.from_numpy(PROD_TABLE[matrix.T]).to(dev)
+        for i in range(k):
+            out.bitwise_xor_(prods[i].index_select(
+                1, shards[i].to(torch.int32)))
+    return out
+
+
+gf_matmul_torch.cuda_calls = 0
+
+
 def gf_matmul(matrix: np.ndarray, shards, device: str | torch.device = "cuda"):
     """The GF(2^8) product of a host ``(rows, k)`` matrix and ``(k, L)``
-    uint8 shards, in plain PyTorch.
+    uint8 shards through ``cuda_gf.gf_matmul_cuda``: the kernel on a CUDA
+    tensor, the plain twin on a CPU one.
 
     NumPy shards are copied to ``device`` (``cuda`` unless the caller
     passes ``cpu``) and the result comes back as NumPy; a tensor is
@@ -166,7 +198,7 @@ def gf_matmul(matrix: np.ndarray, shards, device: str | torch.device = "cuda"):
     shards give ``(rows, 0)``.
     """
     matrix = np.asarray(matrix, dtype=np.uint8)
-    rows, k = matrix.shape
+    k = matrix.shape[1]
     as_numpy = not isinstance(shards, torch.Tensor)
     if as_numpy:
         dev = resolve_device(device)
@@ -179,15 +211,7 @@ def gf_matmul(matrix: np.ndarray, shards, device: str | torch.device = "cuda"):
             raise ValueError(f"shards must be uint8, got {shards.dtype}")
     if shards.shape[0] != k:
         raise ValueError(f"matrix k={k} vs shards {tuple(shards.shape)}")
-    shards = shards.to(dev)
-    length = shards.shape[1]
-    out = torch.zeros((rows, length), dtype=torch.uint8, device=dev)
-    if length:
-        # prods[i, r, b] = M[r, i] * b: column i's products for every row.
-        prods = torch.from_numpy(PROD_TABLE[matrix.T]).to(dev)
-        for i in range(k):
-            out.bitwise_xor_(prods[i].index_select(
-                1, shards[i].to(torch.int32)))
+    out = cuda_gf.gf_matmul_cuda(matrix, shards.to(dev))
     return out.cpu().numpy() if as_numpy else out
 
 
@@ -223,8 +247,9 @@ def rs_encode(data_shards, m: int, path: str = "torch",
     """(m, shard_len) parity shards for (k, shard_len) data shards.
 
     ``path="torch"`` runs ``gf_matmul`` (NumPy in, NumPy out, computed on
-    ``device``; a tensor stays on its device); ``"np"`` and ``"ref"`` are
-    the host twins and ignore ``device``.
+    ``device``, on the kernel where that is a card; a tensor stays on its
+    device); ``"np"`` and ``"ref"`` are the host twins and ignore
+    ``device``.
     """
     fn = _matmul(path, device)
     k = len(data_shards) if np.ndim(data_shards) == 2 else 1

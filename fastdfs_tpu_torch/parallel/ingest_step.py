@@ -17,10 +17,11 @@ on its shard, inside one process, and the collectives of
    are all-gathered along ``dp``.
 3. **MinHash, tensor-parallel (tp)**: each rank runs MinHash stages 1-3
    through the sketch kernel (``survivor_segmin_cuda``) and stage 4 for
-   its ``P / tp`` permutations (plain ``signature_tiles``); signatures
-   are all-gathered along ``tp``, then along ``dp``.  With ``tp == 1``
-   and 64 permutations the fused kernel (``minhash_batch_cuda``) signs
-   the rows whole.
+   its ``P / tp`` permutations through the stage-4 kernel
+   (``signature_tiles_cuda``, given the rank's columns of the
+   permutation words); signatures are all-gathered along ``tp``, then
+   along ``dp``.  With ``tp == 1`` and 64 permutations the fused kernel
+   (``minhash_batch_cuda``) signs the rows whole.
 4. **Index query (dp + pmax)**: the signature index is row-sharded over
    ``dp``; each rank scores the gathered signatures against its shard
    through the index kernel (``index_best_cuda``) and the best
@@ -33,9 +34,10 @@ collectives: rows shard over a 1-D ``dp`` mesh, each rank runs both
 kernels on its rows.
 
 On CPU ranks every kernel wrapper takes its plain twin; on CUDA ranks it
-launches its kernel or raises.  The plain twins of stages 1 and 4,
-``block_candidates`` (from ``ops.gear_cdc``) and ``index_best`` (from
-``ops.cuda_index``), stay importable from here.
+launches its kernel or raises: the sketch kernel raises for a shingle
+other than 5, where the reference answers in XLA.  The plain twins of
+stages 1 and 4, ``block_candidates`` (from ``ops.gear_cdc``) and
+``index_best`` (from ``ops.cuda_index``), stay importable from here.
 """
 
 from __future__ import annotations
@@ -48,11 +50,12 @@ from fastdfs_tpu_torch.ops.cuda_index import (  # noqa: F401 (re-export)
     index_best, index_best_cuda)
 from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
                                                 minhash_batch_cuda,
+                                                signature_tiles_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_batch_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import (  # noqa: F401 (re-export)
     WINDOW, block_candidates, gear_values)
-from fastdfs_tpu_torch.ops.minhash import perm_tensors, signature_tiles
+from fastdfs_tpu_torch.ops.minhash import perm_words
 from fastdfs_tpu_torch.parallel.collectives import all_gather, pmax, ppermute
 from fastdfs_tpu_torch.parallel.mesh import Mesh
 
@@ -106,8 +109,9 @@ def _shard(mesh: Mesh, x: torch.Tensor, spec: tuple[str | None, ...]
 
 
 def _rank_perms(mesh: Mesh, num_perms: int, tp: int) -> list:
-    """Each rank's stage-4 constants: the permutations of its ``tp``
-    index, on its device (one copy per device and index)."""
+    """Each rank's stage-4 constants: the int32 ``(2, P / tp)`` words of
+    the permutations of its ``tp`` index, on its device (one copy per
+    device and index)."""
     p_local = num_perms // tp
     built: dict = {}
     out = []
@@ -115,21 +119,22 @@ def _rank_perms(mesh: Mesh, num_perms: int, tp: int) -> list:
         t = mesh.coords(r).get("tp", 0)
         key = (mesh.device(r), t)
         if key not in built:
-            built[key] = perm_tensors(num_perms, mesh.device(r),
-                                      slice(t * p_local, (t + 1) * p_local))
+            words = perm_words(num_perms, mesh.device(r))
+            built[key] = words[:, t * p_local:(t + 1) * p_local].contiguous()
         out.append(built[key])
     return out
 
 
 def _sign_rows(rows: torch.Tensor, lens: torch.Tensor, shingle: int,
-               perms) -> torch.Tensor:
+               words) -> torch.Tensor:
     """int32 bits of the MinHash signatures of padded rows: the fused
-    kernel when ``perms`` is None (all 64 permutations, k = 5), else
-    kernel stages 1-3 and the plain stage 4 over ``perms``."""
-    if perms is None:
+    kernel when ``words`` is None (all 64 permutations, k = 5), else
+    kernel stages 1-3 and the stage-4 kernel over the permutation
+    ``words``."""
+    if words is None:
         return minhash_batch_cuda(rows, lens).view(torch.int32)
     z = survivor_segmin_cuda(rows, lens, shingle)
-    return signature_tiles(z, perms[1].shape[0], perms).view(torch.int32)
+    return signature_tiles_cuda(z, words).view(torch.int32)
 
 
 class IngestStep:
@@ -257,8 +262,8 @@ def make_fingerprint_step(mesh: Mesh, num_perms: int = 64,
     (digests (N, 5) uint32, sigs (N, num_perms) uint32)`` on rank 0's
     device, in row order.  ``N`` must divide by the mesh's size.  Each
     rank runs the SHA-1 kernel and the sketch kernel (fused with stage 4
-    for 64 permutations and k = 5) on its rows: no collectives, one
-    launch of each kernel per rank.
+    for 64 permutations and k = 5, else followed by the stage-4 kernel)
+    on its rows: no collectives, one launch of each kernel per rank.
     """
     if mesh.axis_names != ("dp",):
         raise ValueError(f"a fingerprint mesh has the one axis dp, not "

@@ -331,10 +331,27 @@ def test_monitor_and_cli_render_both_storages_live(cluster):
                 assert all(a in out for a in addrs), (argv, out)
 
 
+def _on_both_storages(c, fid) -> bool:
+    """Both storages hold ``fid``.  The tracker routes a read to a replica
+    once the replica's sync has reached the file's create second, which
+    can come before the sync has written the file itself (ROADMAP, Queue
+    3): a read routed there answers status 2."""
+    for i in range(2):
+        try:
+            with c.sc(i) as sc:
+                sc.query_file_info(fid)
+        except StatusError as e:
+            if e.status != 2:
+                raise
+            return False
+    return True
+
+
 def test_concurrent_negotiated_uploads_and_deletes(cluster):
     """Pin/ref discipline under concurrency: negotiated uploads sharing
-    chunks race deletes of earlier files; every surviving file downloads
-    byte-identical and no session leaks."""
+    chunks race deletes of earlier files; every surviving file reaches
+    both storages and downloads byte-identical through the tracker and
+    from each storage, and no session leaks."""
     with time_limit(150):
         c = cluster
         shared = _payload(8, 160 * 1024)
@@ -353,8 +370,18 @@ def test_concurrent_negotiated_uploads_and_deletes(cluster):
                     if j % 2 == 1:
                         cli.delete_file(kept.pop(0)[0])
                 for fid, data in kept:
+                    if not _wait(lambda: _on_both_storages(c, fid),
+                                 timeout=60):
+                        errors.append(f"worker {i}: {fid} never reached "
+                                      f"both storages")
+                        continue
                     if cli.download_to_buffer(fid) != data:
                         errors.append(f"worker {i}: {fid} corrupt")
+                    for k in range(2):
+                        with c.sc(k) as sc:
+                            if sc.download_to_buffer(fid) != data:
+                                errors.append(f"worker {i}: {fid} corrupt "
+                                              f"on storage {k}")
             except Exception as e:  # noqa: BLE001 — surface, don't hang
                 errors.append(f"worker {i}: {e!r}")
             finally:

@@ -20,7 +20,9 @@ from fastdfs_tpu_torch.client import fingerprint_buffer
 from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.entry import dryrun_multichip, entry
 from fastdfs_tpu_torch.ops import SEGMENT_SLACK, minhash, rs_code, sha1, widen
+from fastdfs_tpu_torch.ops.cuda_gf import gf_matmul_cuda
 from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
+                                                signature_tiles_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
@@ -633,3 +635,134 @@ def test_index_kernel_matches_plain_twin(cuda_device, n, m, p):
     assert torch.equal(got, index_best(sigs, index))
     if m:
         assert (got[:min(n, 5)] == 1.0).all()
+
+
+# The GF(2^8) kernel (csrc/gf_matmul.cu) and the stage-4 kernel
+# (csrc/minhash_sig.cu) against their plain twins on the card.
+
+def _gf_check(mat: np.ndarray, shards: torch.Tensor) -> None:
+    before = gf_matmul_cuda.launches
+    got = gf_matmul_cuda(mat, shards)
+    torch.cuda.synchronize()
+    assert gf_matmul_cuda.launches == before + (1 if shards.shape[1] else 0)
+    assert got.shape == (mat.shape[0], shards.shape[1])
+    assert torch.equal(got, rs_code.gf_matmul_torch(mat, shards))
+    assert np.array_equal(got.cpu().numpy(),
+                          rs_code.gf_matmul_np(mat, shards.cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [0, 1, 3, 17, 4097])
+@pytest.mark.parametrize("rows,k", [(2, 4), (4, 10), (8, 32), (32, 32),
+                                    (40, 7)])
+def test_gf_kernel_at_edge_lengths(cuda_device, length, rows, k):
+    rng = np.random.default_rng(rows * 1000 + k + length)
+    mat = rng.integers(0, 256, (rows, k), dtype=np.uint8)
+    shards = torch.from_numpy(rng.integers(0, 256, (k, length),
+                                           dtype=np.uint8)).to(cuda_device)
+    _gf_check(mat, shards)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,k", [(32, 8), (64, 4), (255, 1), (1, 255),
+                                    (33, 33)])
+def test_gf_kernel_holds_every_byte_value(cuda_device, rows, k):
+    # Every coefficient 0..255 appears (0 and 1 included), rows past 32
+    # split over blockIdx.y.
+    mat = (np.arange(rows * k) % 256).astype(np.uint8).reshape(rows, k)
+    rng = np.random.default_rng(rows + k)
+    shards = torch.from_numpy(rng.integers(0, 256, (k, 1031),
+                                           dtype=np.uint8)).to(cuda_device)
+    shards[:, :256] = torch.arange(256, dtype=torch.uint8)
+    _gf_check(mat, shards)
+
+
+@pytest.mark.gpu
+def test_gf_kernel_on_views_and_the_rebuild(cuda_device):
+    k, m, length = 10, 4, 4099
+    rng = np.random.default_rng(9)
+    d = torch.from_numpy(rng.integers(0, 256, (2 * k, length),
+                                      dtype=np.uint8)).to(cuda_device)
+    pm = rs_code.parity_matrix(k, m)
+    # A row-offset view, every other row, and column slices whose rows
+    # start off a 4-byte boundary: none is copied.
+    for view in (d[m:m + k], d[::2], d[:k, 1:], d[m:m + k, 3:4000]):
+        _gf_check(pm, view)
+    out = torch.zeros((2 * m, length), dtype=torch.uint8, device=cuda_device)
+    got = gf_matmul_cuda(pm, d[:k], out[::2])
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out[::2], rs_code.gf_matmul_torch(pm, d[:k]))
+    assert not out[1::2].any()
+    parity = rs_code.rs_encode(d[:k], m)
+    survivors = torch.cat([d[m:k], parity])
+    back = rs_code.rs_reconstruct(survivors, list(range(m, k + m)), k, m)
+    assert torch.equal(back, d[:k])
+
+
+def _survivors(dev, rng, n: int, length: int = 4096) -> torch.Tensor:
+    """Real survivor vectors of n random rows (the sketch kernel's z;
+    short rows among them), rows 0 and 1 all EMPTY and row 5 with one
+    survivor."""
+    data, lens = _batch(rng, n, length, [0, 0, 1, 4, length])
+    z = survivor_segmin_cuda(torch.from_numpy(data).to(dev),
+                             torch.from_numpy(lens).to(dev)).view(torch.int32)
+    z[:2].fill_(-1)
+    z[5].fill_(-1)
+    z[5, 17] = 123456789
+    return z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 7, 32, 33, 64, 100, 128, 300])
+def test_stage4_kernel_matches_plain_twin(cuda_device, p):
+    rng = np.random.RandomState(p)
+    z = _survivors(cuda_device, rng, 517)
+    words = minhash.perm_words(p, cuda_device)
+    before = signature_tiles_cuda.launches
+    got = signature_tiles_cuda(z, words)
+    torch.cuda.synchronize()
+    assert signature_tiles_cuda.launches == before + 1
+    want = minhash.signature_tiles(z, p, minhash.perms_from_words(words))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got.view(torch.int32)[:2] == -1).all()   # all-EMPTY rows
+
+
+@pytest.mark.gpu
+def test_stage4_kernel_on_views_and_a_rank_slice(cuda_device):
+    rng = np.random.RandomState(3)
+    z = _survivors(cuda_device, rng, 300)
+    words = minhash.perm_words(64, cuda_device)
+    out = torch.full((150, 40), 7, dtype=torch.int32, device=cuda_device)
+    for t in range(2):
+        rank = words[:, 32 * t:32 * (t + 1)].contiguous()
+        got = signature_tiles_cuda(z[::2], rank, out[:, 4:36])
+        want = minhash.signature_tiles(z[::2], 32,
+                                       minhash.perms_from_words(rank))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (out[:, :4] == 7).all() and (out[:, 36:] == 7).all()
+    assert signature_tiles_cuda(z[:0], words).shape == (0, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perms", [32, 128])
+def test_ingest_and_fingerprint_steps_at_other_counts(cuda_device, perms):
+    rng = np.random.RandomState(perms)
+    streams = torch.from_numpy(
+        rng.randint(0, 256, (2, 1 << 16), dtype=np.uint8)).to(cuda_device)
+    data, lens = _batch(rng, 64, 2048, [2048, 0, 1, 55])
+    d = torch.from_numpy(data).to(cuda_device)
+    ln = torch.from_numpy(lens).to(cuda_device)
+    plain = _u32(minhash.minhash_batch(d, ln, perms))
+    index = plain[::3].copy()
+    mesh = make_mesh(8, devices=[cuda_device] * 8)
+    before = signature_tiles_cuda.launches
+    _, _, sigs, best = make_ingest_step(mesh, num_perms=perms)(
+        streams.view(2, mesh.shape["sp"], -1), d, ln, index)
+    torch.cuda.synchronize()
+    assert signature_tiles_cuda.launches == before + 8
+    assert np.array_equal(_u32(sigs), plain)
+    assert (best[::3] == 1.0).all()
+    step = make_fingerprint_step(fingerprint_mesh(2, devices=[cuda_device] * 2),
+                                 num_perms=perms)
+    _, sigs = step(d, ln)
+    assert np.array_equal(_u32(sigs), plain)

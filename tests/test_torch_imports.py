@@ -103,8 +103,8 @@ def test_kernel_sources_and_build_are_keyed():
     from fastdfs_tpu_torch.ops import _build
 
     names = [p.name for p in _build.sources()]
-    assert names == ["gear_cdc.cu", "index_query.cu", "minhash_survivor.cu",
-                     "sha1.cu"]
+    assert names == ["gear_cdc.cu", "gf_matmul.cu", "index_query.cu",
+                     "minhash_sig.cu", "minhash_survivor.cu", "sha1.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()  # stable key for unchanged sources

@@ -33,14 +33,17 @@ import numpy as np
 import pytest
 
 from fastdfs_tpu_torch.client import StorageClient
-from tests.harness import (STORAGED, chunk_digests, corrupt_chunk,
-                           recipe_keys, start_storage)
+from tests import torch_native
+from tests.harness import chunk_digests, corrupt_chunk, recipe_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_HAVE_TOOLCHAIN = ((shutil.which("cmake") is not None
-                    and shutil.which("ninja") is not None)
-                   or shutil.which("g++") is not None)
-_HAVE_BINARIES = os.path.exists(STORAGED)
+# tests/torch_native.py builds the daemons with g++ and ar unless the
+# checkout's native/build/ holds both.
+_HAVE_TOOLCHAIN = (shutil.which("g++") is not None
+                   and shutil.which("ar") is not None)
+_HAVE_BINARIES = all(os.path.exists(os.path.join(torch_native.NATIVE, "build",
+                                                 name))
+                     for name in ("fdfs_storaged", "fdfs_trackerd"))
 needs_native = pytest.mark.skipif(
     not (_HAVE_TOOLCHAIN or _HAVE_BINARIES),
     reason="no native toolchain and no prebuilt daemons")
@@ -148,12 +151,18 @@ class PortSidecar:
 
 @contextlib.contextmanager
 def live_system(tmp_path):
+    # The daemon comes from tests/torch_native.py (its locked g++ build,
+    # unless native/build/ holds both daemons), not from tests/harness.py,
+    # whose ninja another test worker may be relinking at this moment.
+    storaged, _, _ = torch_native.native_binaries()
     sidecar = PortSidecar(tmp_path)
     base = os.path.join(str(tmp_path), "st")
     daemon = None
     try:
-        daemon = start_storage(base, dedup_mode="sidecar",
-                               dedup_sidecar=sidecar.sock, extra=SCRUB)
+        daemon = torch_native.start_storage(storaged, base,
+                                            dedup_mode="sidecar",
+                                            dedup_sidecar=sidecar.sock,
+                                            extra=SCRUB)
         yield sidecar, daemon, base
     finally:
         if daemon is not None:
