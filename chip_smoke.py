@@ -18,7 +18,13 @@ before the last line):
    the card could take (the bound); an edge segment (lengths 0-8, 55-57,
    63-65 at every start offset mod 4, each followed by non-zero bytes,
    and a last chunk past max_size); one chunk as large as the segment;
-   and the padded ``(N, L)`` adapters at 256 x 2048.  Then the gear CDC
+   and the padded ``(N, L)`` adapters at 256 x 2048.  Stages 1-3 at
+   shingle widths 4 and 8 on the general kernel (``survivor_ragged_cuda``
+   with ``k``): on the segment (timed, one launch each) and on an edge
+   segment each (lengths 0, 1, k - 1, k, k + 1 and a few hundred at every
+   start offset mod 4, each followed by non-zero bytes, and a chunk of
+   three of the kernel's 4096-position passes), and the padded adapter at
+   k = 4, bit for bit against the plain twin.  Then the gear CDC
    kernel's compacted form (``csrc/gear_cdc.cu``) against its plain twin
    and the host scan: on the segment as the client stages it (more tiles
    than the kernel's persistent grid has blocks; timed), below a
@@ -47,6 +53,10 @@ before the last line):
    kernel for D only).
 4. Where one segment's engine time goes: a torch.profiler pass over
    ``DedupEngine.fingerprint``, device time by kernel and the idle share.
+   Then the engine at ``DedupConfig(shingle=4)`` on a seeded 64 MB
+   segment with cuts, a counted run: one launch each of the SHA-1
+   kernel, the general-k stages 1-3 and the stage-4 kernel, no plain
+   twin, digests equal to hashlib and signatures to the plain twins'.
 5. The client's upload fingerprint: ``client.fingerprint_buffer`` on the
    card over corpus file A and a second seeded payload, both exactly
    2^26 bytes (so the device CDC's power-of-two buffer has no slack of
@@ -66,8 +76,9 @@ before the last line):
    of one launch; the kernel against its plain twin on each product, at
    shard lengths 0, 1, 3, 17 and 4097, on row and column views, rows past
    32 and a matrix of every byte value; the median ms of encode and
-   rebuild beside the bound and the plain twin's, and the device kernels
-   an encode runs.
+   rebuild beside the bound and the plain twin's, the device kernels an
+   encode runs and the device time of its product, and the rebuild's
+   product's event and device times.
 8. ``parallel/`` with every virtual rank on the one card: the ingest step
    over a (2, 2, 2) mesh and over one rank on two seeded 64 MB streams
    (cut candidates planted at the block seam, the gear kernel's run and
@@ -84,11 +95,13 @@ before the last line):
    the index kernel
    on the step's queries x 65,536 rows and on small odd shapes, and the
    stage-4 kernel (``csrc/minhash_sig.cu``) on a dp rank's real survivor
-   vectors at each tp rank's 32 permutations, at 64 and at P = 1, 7, 33
-   and 100 with all-EMPTY rows, against their plain twins, bit for bit.
-   Times of both steps (the 8-rank step also with stage 4 swapped back
-   to its plain twin), and of the stage-1 CDC, the index query and stage
-   4 on their kernels beside their plain twins and bounds.
+   vectors at each tp rank's 32 permutations, at 64 and at P = 1, 7, 31,
+   33, 100 and 300 with all-EMPTY rows, against their plain twins, bit
+   for bit.  Both steps again at shingle 4 (stages 1-3 on the general
+   kernel on every rank), counted, equal to the plain twins.  Times of
+   both steps (the 8-rank step also with stage 4 swapped back to its
+   plain twin, and at shingle 4), and of the stage-1 CDC, the index query
+   and stage 4 on their kernels beside their plain twins and bounds.
 9. The live system: ``fdfs_storaged`` (built with ``fdfs_trackerd`` if
    the checkout has neither, through ``tests/torch_native.py``) with
    ``dedup_mode = sidecar`` on the port's
@@ -122,14 +135,17 @@ before the last line):
    live.  Wall per 64 MB upload and the stitched timeline.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-5, 6, 7, 8, 9 and 10 (each counted from 0 just before its run); launches
-made only to time or compare a kernel are not counted.  Those runs must
-call no plain twin on a CUDA tensor (the ``cuda_calls`` of
-``gear_window``, ``index_best``, ``rs_code.gf_matmul_torch`` and
-``minhash.signature_tiles`` stay 0).  The second-to-last line is a JSON
-object with one entry per kernel (the gear kernel's two forms as two
-entries; the five that replace jitted XLA, not a Pallas kernel, say so
-in ``replaces_kind``); the last is ``{"ok": true, "device": {...}}``.
+4, 5, 6, 7, 8, 9 and 10 (each counted from 0 just before its run; the
+general-k kernel's from the runs at shingle 4); launches made only to
+time or compare a kernel are not counted.  Those runs must call no plain
+twin on a CUDA tensor (the ``cuda_calls`` of ``gear_window``,
+``index_best``, ``rs_code.gf_matmul_torch``, ``minhash.survivor_ragged``,
+``minhash.survivor_segmin`` and ``minhash.signature_tiles`` stay 0).
+The second-to-last line is a JSON object with one entry per kernel (the
+gear kernel's two forms as two entries, the sketch file's fused and
+general-k kernels as two; the six that replace jitted XLA, not a Pallas
+kernel, say so in ``replaces_kind``); the last is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA card the script exits non-zero and prints no result.
 """
 
@@ -214,7 +230,7 @@ def _load_native():
 native = _load_native()
 harness = native.harness
 dense_pair, plant_candidate = native.dense_pair, native.plant_candidate
-seam_plants = native.seam_plants
+seam_plants, shingle_segment = native.seam_plants, native.shingle_segment
 plant_wide, wide_seam_plants = native.plant_wide, native.wide_seam_plants
 
 SEED = 20261016
@@ -242,7 +258,8 @@ INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 #   (h' = h*B - b[p]*B^5 + b[p+5], two IMAD): one PRMT for the new byte,
 #   two IMAD, one LOP3 (sample test, predicate out), one IMNMX (min);
 #   plus per 4-byte word an address add, a loop add, a compare and a
-#   segment flush, one per position.  5 + 1 = 6.
+#   segment flush, one per position.  5 + 1 = 6.  The same at any
+#   shingle width k: the roll's two IMAD do not depend on k.
 # - Stage 4 per non-EMPTY segment minimum and permutation: one IMAD
 #   (a*z + b) and one IMNMX.  2.
 SHA1_OPS_PER_BLOCK = 613
@@ -448,9 +465,11 @@ class KernelRecord:
 
 # The plain twins' calls on a CUDA tensor: every eager gear pass goes
 # through gear_window, the plain index query is index_best, the plain
-# GF(2^8) product gf_matmul_torch and the plain stage 4 signature_tiles.
-# The card's paths make none.
+# GF(2^8) product gf_matmul_torch, the plain stages 1-3 survivor_ragged
+# and survivor_segmin (at any shingle width) and the plain stage 4
+# signature_tiles.  The card's paths make none.
 PLAIN_TWINS = (gear_window, index_best, rs_code.gf_matmul_torch,
+               minhash.survivor_ragged, minhash.survivor_segmin,
                minhash.signature_tiles)
 
 
@@ -525,21 +544,25 @@ def check_segment(dev, what, seg, offsets, lens, rec_sha1, rec_sketch,
     check(err == 0, f"sketch kernel != plain twin on the {what}")
     survivors = int((i64(z) != int(minhash.EMPTY)).sum())
     check(survivors > 0, f"sketch of the {what} has no survivor")
-    check(np.array_equal(i64(survivor_ragged_cuda(d_seg, d_off, d_len, d_ord)),
-                         i64(z)),
+    check(np.array_equal(i64(survivor_ragged_cuda(d_seg, d_off, d_len,
+                                                  order=d_ord)), i64(z)),
           f"sketch kernel's stages 1-3 != plain twin on the {what}")
     rec_sketch.max_abs_err = max(rec_sketch.max_abs_err, err)
     if timed:
         words = minhash.perm_words(64, dev)
-        rec_sketch.ms = median_ms(lambda: sketch_ragged_cuda(
-            d_seg, d_off, d_len, words, d_ord))
+
+        def sketch():
+            return sketch_ragged_cuda(d_seg, d_off, d_len, words, d_ord)
+        rec_sketch.ms = median_ms(sketch)
+        rec_sketch.device_ms = device_ms(sketch, "sketch_ragged_kernel")
         rec_sketch.plain_ms = plain_ms
         rec_sketch.bound_ms, rec_sketch.bound_by = sketch_bound(
             np.asarray(lens), survivors)
         print(f"  {what}: {len(lens)} chunks, longest {max(lens)} B, "
               f"{survivors} survivors; sha1 {rec_sha1.ms:.4f} ms (plain "
               f"{rec_sha1.plain_ms:.1f}, bound {rec_sha1.bound_ms:.4f} by "
-              f"{rec_sha1.bound_by}); sketch {rec_sketch.ms:.4f} ms (plain "
+              f"{rec_sha1.bound_by}); sketch {rec_sketch.ms:.4f} ms, "
+              f"{fmt_ms(rec_sketch.device_ms)} ms on the device (plain "
               f"{rec_sketch.plain_ms:.1f}, bound {rec_sketch.bound_ms:.4f} "
               f"by {rec_sketch.bound_by}); bit-exact")
     else:
@@ -582,6 +605,79 @@ def check_padded_adapters(dev, rng) -> None:
                          i64(minhash.minhash_batch(d, ln))),
           "padded sketch adapter != plain twin")
     print("  padded (256, 2048) adapters of both kernels: bit-exact")
+
+
+SHINGLES = (4, 8)                  # phase 2's widths other than 5
+
+
+def survivor_k_bound(lens: np.ndarray, k: int) -> tuple[float, str]:
+    """(ms, by) of one launch of stages 1-3 at width k: each chunk byte
+    and its offset, length and order entry read once and its 4 KiB of
+    ``z`` written, against SURVIVOR_OPS_PER_POSITION at every position
+    p <= bound."""
+    lens = lens.astype(np.int64)
+    bound = np.where(lens >= k, lens - k, np.maximum(lens, 1) - 1)
+    t_bytes = float(lens.sum() + (16 + 4 * minhash.NUM_SEGMENTS)
+                    * len(lens)) / HBM_BYTES_PER_S
+    t_ops = float((bound + 1).sum() * SURVIVOR_OPS_PER_POSITION) \
+        / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_survivor_k(dev, what: str, seg: bytes, offsets, lens, k: int,
+                     rec, timed: bool) -> None:
+    """Stages 1-3 at width ``k`` (the general kernel) on one segment, one
+    launch, bit for bit against the plain twin; with ``timed``, the
+    times and the bound go into the record."""
+    d_seg, d_off, d_len, d_ord = on_card(dev, seg, offsets, lens)
+    before = survivor_ragged_cuda.launches
+    got = survivor_ragged_cuda(d_seg, d_off, d_len, k, order=d_ord)
+    torch.cuda.synchronize()
+    check(survivor_ragged_cuda.launches == before + 1,
+          f"stages 1-3 at k = {k} on the {what}: not one launch")
+    want, plain_ms = once_ms(lambda: minhash.survivor_ragged(
+        d_seg[:len(seg)], d_off, d_len, k, PLAIN_ROW_TILE))
+    err = int(np.abs(i64(got) - i64(want)).max())
+    rec.max_abs_err = max(rec.max_abs_err, err)
+    check(err == 0, f"general-k kernel != plain twin at k = {k} on the "
+          f"{what}")
+    survivors = int((i64(got) != int(minhash.EMPTY)).sum())
+    if not timed:
+        print(f"  general-k kernel, k = {k}, {what} ({len(lens)} chunks): "
+              f"one launch, bit-exact")
+        return
+
+    def fn():
+        return survivor_ragged_cuda(d_seg, d_off, d_len, k, order=d_ord)
+    ms, dev_ms = median_ms(fn), device_ms(fn, "survivor_k_kernel")
+    bound, by = survivor_k_bound(np.asarray(lens), k)
+    if k == SHINGLES[0]:
+        rec.ms, rec.device_ms, rec.plain_ms = ms, dev_ms, plain_ms
+        rec.bound_ms, rec.bound_by = bound, by
+    print(f"  general-k kernel, k = {k}, {what}: {survivors} survivors, one "
+          f"launch, {ms:.4f} ms a call (CUDA events), {fmt_ms(dev_ms)} ms on "
+          f"the device (plain twin {plain_ms:.1f}, bound {bound:.4f} by "
+          f"{by}); bit-exact")
+
+
+def check_shingles(dev, rng, seg: bytes, offsets, lens, rec) -> None:
+    """The general kernel at k = 4 and 8 on the 64 MB segment (timed) and
+    on an edge segment each, and the padded adapter at k = 4."""
+    for k in SHINGLES:
+        check_survivor_k(dev, f"{SEGMENT >> 20} MB segment", seg, offsets,
+                         lens, k, rec, timed=True)
+        edge, e_off, e_len = shingle_segment(rng, k)
+        check_survivor_k(dev, "edge segment", edge, e_off, e_len, k, rec,
+                         timed=False)
+    data = rng.integers(0, 256, (256, 2048), dtype=np.uint8)
+    ln = rng.integers(1, 2049, 256).astype(np.int32)
+    ln[:6] = [0, 1, 3, 4, 5, 2048]
+    data[np.arange(2048)[None, :] >= ln[:, None]] = 0
+    d, d_ln = torch.from_numpy(data).to(dev), torch.from_numpy(ln).to(dev)
+    check(np.array_equal(i64(survivor_segmin_cuda(d, d_ln, 4)),
+                         i64(minhash.survivor_segmin(d, d_ln, 4))),
+          "padded survivor adapter at k = 4 != plain twin")
+    print("  padded (256, 2048) survivor adapter at k = 4: bit-exact")
 
 
 def check_gear(rec, what: str, buf: torch.Tensor, n: int, bits: int, k: int
@@ -734,7 +830,7 @@ def check_gear_kernel(dev, seg: bytes, rec) -> None:
           f"chunk_stream_np; bit-exact")
 
 
-def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear
+def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear, rec_shingle
                   ) -> tuple[bytes, list[int]]:
     rng = np.random.default_rng(SEED)
     print("phase 2: kernels vs plain twins on the card (ms = one launch "
@@ -750,6 +846,9 @@ def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear
                   rec_sketch, timed=False)
     check_whole_segment_chunk(dev, rng)
     check_padded_adapters(dev, rng)
+    offsets = [0] + cuts[:-1]
+    check_shingles(dev, rng, seg, offsets,
+                   [b - a for a, b in zip(offsets, cuts)], rec_shingle)
     check_gear_kernel(dev, seg, rec_gear)
     return seg, cuts
 
@@ -991,6 +1090,46 @@ def phase_profile(dev) -> None:
         print(f"  device {name}: {us / 1e3:.3f} ms")
     print(f"  device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f} of the call's wall time")
+
+
+def check_engine_shingle(dev, card: str) -> dict[str, int]:
+    """The engine at ``DedupConfig(shingle=4)`` on a seeded 64 MB segment
+    with cuts, a counted main-path run: one launch each of the SHA-1
+    kernel, the general-k stages 1-3 and the stage-4 kernel, and no plain
+    twin; digests equal hashlib and signatures the plain twins'.
+    Returns the run's launches by wrapper."""
+    rng = np.random.default_rng(SEED + 12)
+    data = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
+    cuts = chunk_stream_np(data)
+    engine = DedupEngine(DedupConfig(shingle=4), device=dev)
+    (spans, digests, sigs), launches = counted(
+        lambda: engine.fingerprint(data, cuts=cuts))
+    want = {"sha1_ragged_cuda": 1, "survivor_ragged_cuda": 1,
+            "signature_tiles_cuda": 1}
+    check(launches == want, f"engine at shingle 4 launched {launches}")
+    check(spans == spans_of(cuts), "engine at shingle 4: spans != cuts")
+    raw = sha1.digest_bytes(digests)
+    for i, (o, n) in enumerate(spans):
+        check(raw[i * 20:(i + 1) * 20] == hashlib.sha1(data[o:o + n]).digest(),
+              f"engine at shingle 4: digest {i} != hashlib")
+    seg = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+    offsets = torch.tensor([o for o, _ in spans], dtype=torch.int64,
+                           device=dev)
+    lens = torch.tensor([n for _, n in spans], dtype=torch.int32, device=dev)
+    plain = minhash.sketch_ragged(seg, offsets, lens, 64, 4,
+                                  row_tile=PLAIN_ROW_TILE)
+    check(np.array_equal(sigs.astype(np.int64), i64(plain)),
+          "engine at shingle 4: signatures != plain twins'")
+    times = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        engine.fingerprint(data, cuts=cuts)
+        times.append((time.monotonic() - t0) * 1e3)
+    print(f"  engine at shingle 4 on one {SEGMENT >> 20} MB segment with "
+          f"cuts ({len(spans)} chunks): launches {launches}, no plain twin; "
+          f"digests == hashlib, signatures == plain twins; wall "
+          f"{statistics.median(times):.1f} ms (median of 3)  [{card}]")
+    return launches
 
 
 def is_copy(key: str) -> bool:
@@ -1253,6 +1392,7 @@ def phase_rs(dev, card: str, rec) -> int:
         check_gf(rec, pm, d, f"RS({k},{m}) encode")
         check_gf(rec, dm, survivors, f"RS({k},{m}) rebuild")
         enc_ms = median_ms(lambda: rs_code.rs_encode(d, m), 10)
+        enc_dev = device_ms(lambda: gf_matmul_cuda(pm, d), "gf_matmul_kernel")
         dec_ms = median_ms(lambda: rs_code.rs_reconstruct(
             survivors, present, k, m), n=10)
         enc_plain = median_ms(lambda: rs_code.gf_matmul_torch(pm, d), 3)
@@ -1268,7 +1408,8 @@ def phase_rs(dev, card: str, rec) -> int:
               f"and the plain twin, rebuilt from the last {k} shards == "
               f"data; one GF launch each; encode {enc_ms:.4f} ms "
               f"({kernel_n if kernels else 'not measured'} device kernels "
-              f"a call; bound {enc_bound:.4f} by {enc_by}; plain twin "
+              f"a call; its product {fmt_ms(enc_dev)} ms on the device; "
+              f"bound {enc_bound:.4f} by {enc_by}; plain twin "
               f"{enc_plain:.4f}), rebuild {dec_ms:.4f} ms (bound "
               f"{dec_bound:.4f} by {dec_by}; plain twin {dec_plain:.4f})  "
               f"[{card}]")
@@ -1442,6 +1583,32 @@ def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index,
           f"runs the body: each row is hashed sp x tp = "
           f"{sp * mesh8.shape['tp']} times on the 8-rank mesh)")
 
+    # The same steps at shingle 4: stages 1-3 on the general kernel on
+    # every rank (the 1-rank step too: the fused kernel is k = 5 only).
+    step48 = make_ingest_step(mesh8, shingle=4)
+    step41 = make_ingest_step(mesh1, shingle=4)
+    (_, dig48, sig48, _), n48 = counted(lambda: step48(*in8))
+    (_, _, sig41, _), n41 = counted(lambda: step41(*in1))
+    for launches in (n48, n41):
+        for name, k in launches.items():
+            key = "survivor_k" if name == "survivor_segmin_cuda" else name
+            total[key] = total.get(key, 0) + k
+    for launches, r in ((n48, RANKS), (n41, 1)):
+        check(launches == {"sha1_batch_cuda": r, "survivor_segmin_cuda": r,
+                           "signature_tiles_cuda": r,
+                           "block_candidates_cuda": r, "index_best_cuda": r},
+              f"{r}-rank step at shingle 4 launched {launches}")
+    plain4 = minhash.sketch_ragged(d_seg, d_off, d_len, 64, 4,
+                                   row_tile=PLAIN_ROW_TILE)
+    check(np.array_equal(i64(sig48)[:n_real], i64(plain4))
+          and np.array_equal(i64(sig41), i64(sig48))
+          and np.array_equal(i64(dig48), i64(dig8)),
+          "the steps at shingle 4 != the plain twins")
+    ms48 = median_ms(lambda: step48(*in8), 3)
+    print(f"  8-rank and 1-rank steps at shingle 4: launches {n48} and "
+          f"{n41}, no plain twin; signatures == the plain twins at k = 4; "
+          f"8 ranks {ms48:.2f} ms (CUDA-event median of 3)  [{card}]")
+
     check_block_kernel(d_streams, sp, bits, rec_block)
     check_index_kernel(dev, rng, sig8.view(torch.int32), d_index, rec_index)
     check_sig_kernel(dev, rng, d_rows[:n // dp], d_lens[:n // dp],
@@ -1593,7 +1760,7 @@ def check_sig_kernel(dev, rng, rows: torch.Tensor, lens: torch.Tensor,
              for t, w in enumerate(slices)]
     cases.append((z, words, "all 64 permutations"))
     cases += [(z_odd, minhash.perm_words(p, dev), f"P = {p}, 64 rows EMPTY")
-              for p in (1, 7, 33, 100)]
+              for p in (1, 7, 31, 33, 100, 300)]
     for zz, w, what in cases:
         got = signature_tiles_cuda(zz, w).view(torch.int32)
         want = minhash.signature_tiles(zz, w.shape[1],
@@ -1618,7 +1785,8 @@ def check_sig_kernel(dev, rng, rows: torch.Tensor, lens: torch.Tensor,
           f"(CUDA events), {fmt_ms(rec.device_ms)} ms on the device, its "
           f"plain twin {rec.plain_ms:.3f} ms, bound {rec.bound_ms:.4f} ms "
           f"by {rec.bound_by}; == plain twin at each tp slice, at 64 (and "
-          f"== the fused kernel) and at P = 1, 7, 33, 100 with EMPTY rows")
+          f"== the fused kernel) and at P = 1, 7, 31, 33, 100, 300 with "
+          f"EMPTY rows")
 
 
 def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
@@ -1701,10 +1869,11 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
 
 
 def phase_parallel(dev, card: str, seg: bytes, cuts: list[int], rec_block,
-                   rec_index, rec_sig) -> tuple[int, int, int, int, int]:
-    """Phase 8; returns the SHA-1, sketch, dense gear, index and stage-4
-    launches of its main-path runs (each counted from 0 just before
-    it)."""
+                   rec_index, rec_sig
+                   ) -> tuple[int, int, int, int, int, int]:
+    """Phase 8; returns the SHA-1, sketch (k = 5), dense gear, index,
+    stage-4 and general-k launches of its main-path runs (each counted
+    from 0 just before it)."""
     print(f"phase 8: parallel/, the engine's fan-out and the entry on the "
           f"card; every virtual rank sits on {dev}, so no time below says "
           f"anything about scaling across cards")
@@ -1717,7 +1886,7 @@ def phase_parallel(dev, card: str, seg: bytes, cuts: list[int], rec_block,
             sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS),
             total.get("block_candidates_cuda", 0),
             total.get("index_best_cuda", 0),
-            total.get("signature_tiles_cuda", 0))
+            total.get("signature_tiles_cuda", 0), total.get("survivor_k", 0))
 
 
 # Phase 9: the live system.
@@ -2359,15 +2528,23 @@ def main() -> int:
     rec_sig = KernelRecord("minhash_sig",
                            "fastdfs_tpu_torch/csrc/minhash_sig.cu",
                            "fastdfs_tpu/ops/minhash.py:127", xla=True)
+    rec_shingle = KernelRecord("survivor_k",
+                               "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
+                               "fastdfs_tpu/ops/minhash.py:98", xla=True)
     records = (rec_sha1, rec_sketch, rec_gear, rec_block, rec_index, rec_gf,
-               rec_sig)
+               rec_sig, rec_shingle)
     marks = [time.monotonic()]
-    seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch, rec_gear)
+    seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch, rec_gear,
+                              rec_shingle)
     marks.append(time.monotonic())
     (rec_sha1.launches, rec_sketch.launches,
      rec_gear.launches) = phase_socket(dev, card)
     marks.append(time.monotonic())
     phase_profile(dev)
+    shingle_n = check_engine_shingle(dev, card)
+    rec_sha1.launches += shingle_n["sha1_ragged_cuda"]
+    rec_shingle.launches += shingle_n["survivor_ragged_cuda"]
+    rec_sig.launches += shingle_n["signature_tiles_cuda"]
     marks.append(time.monotonic())
     sha1_n, gear_n = phase_client(dev, card)
     rec_sha1.launches += sha1_n
@@ -2377,11 +2554,13 @@ def main() -> int:
     marks.append(time.monotonic())
     rec_gf.launches = phase_rs(dev, card, rec_gf)
     marks.append(time.monotonic())
-    (sha1_n, sketch_n, rec_block.launches, rec_index.launches,
-     rec_sig.launches) = phase_parallel(dev, card, seg, cuts, rec_block,
-                                        rec_index, rec_sig)
+    (sha1_n, sketch_n, rec_block.launches, rec_index.launches, sig_n,
+     shingle_n) = phase_parallel(dev, card, seg, cuts, rec_block, rec_index,
+                                 rec_sig)
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
+    rec_sig.launches += sig_n
+    rec_shingle.launches += shingle_n
     marks.append(time.monotonic())
     storaged, trackerd, native_s = native.native_binaries()
     print(f"native daemons: {storaged}, {trackerd} ready in {native_s:.1f} s")

@@ -35,6 +35,22 @@
 // lens (n,) int32 >= 0; order null or a permutation of [0, n) as int32
 // (block b signs chunk order[b]); perms (2, 64) uint32, a_j then b_j;
 // sig rows of 64 uint32 words, sig_stride words apart; z null or (n, 1024).
+//
+// Stages 1-3 alone at any shingle width k >= 1 (survivor_k_kernel, C entry
+// fdfs_survivor_ragged_k): the same z, for the widths where the reference
+// answers with its XLA survivor_segmin (fastdfs_tpu/ops/minhash.py:98; its
+// Pallas kernel is k = 5 only).  Every k-byte window hashes with zeros
+// past the chunk's end; a window is valid at p <= len - k, or at
+// p < max(len, 1) when len < k.  One block a chunk, 256 threads; thread t
+// hashes the 16 positions 4096 r + 16 t .. + 15 of each pass r, whose
+// words all fall in its own four segments 4 t .. 4 t + 3, so it keeps
+// their minima in registers and writes them as one 16-byte store.  The
+// run's first hash takes k byte loads; then it rolls forward,
+// h' = h B - b[p] B^k + b[p + k] (exact mod 2^32; B^k from the host).
+// Every byte load at or past the chunk's end reads 0, so a neighbour's
+// bytes never enter a window.  A simple kernel: each position costs two
+// byte loads (L1 serves most) and about six integer instructions, plus k
+// loads a run; stage 4 then runs on minhash_sig.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -167,6 +183,47 @@ __global__ void __launch_bounds__(kThreads)
   if (sub == 0) sig[i * sig_stride + perm] = best;
 }
 
+// Byte p of a chunk of len bytes, 0 at or past its end.
+__device__ __forceinline__ uint32_t byte_at(const uint8_t* msg, long long p,
+                                            long long len) {
+  return p < len ? static_cast<uint32_t>(__ldg(msg + p)) : 0u;
+}
+
+constexpr int kRun = 16;                  // positions a thread hashes a pass
+constexpr int kPass = kThreads * kRun;    // 4 * kSegments positions
+
+__global__ void __launch_bounds__(kThreads)
+    survivor_k_kernel(const uint8_t* __restrict__ seg,
+                      const long long* __restrict__ offsets,
+                      const int32_t* __restrict__ lens,
+                      const int32_t* __restrict__ order, int k,
+                      uint32_t poly_bk, uint32_t* __restrict__ z) {
+  const long long i = order != nullptr ? order[blockIdx.x] : blockIdx.x;
+  const int t = threadIdx.x;
+  const uint8_t* msg = seg + offsets[i];
+  const long long len = lens[i] > 0 ? lens[i] : 0;
+  const long long bound = len >= k ? len - k : (len > 1 ? len : 1) - 1;
+
+  uint32_t m[kRun / 4];
+#pragma unroll
+  for (int w = 0; w < kRun / 4; ++w) m[w] = kEmpty;
+  for (long long p0 = static_cast<long long>(kRun) * t; p0 <= bound;
+       p0 += kPass) {
+    uint32_t h = 0;
+    for (int j = 0; j < k; ++j) h = h * kPolyB + byte_at(msg, p0 + j, len);
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      const long long p = p0 + r;
+      keep(m[r / 4], h, p, bound);
+      if (r + 1 < kRun)
+        h = h * kPolyB - byte_at(msg, p, len) * poly_bk +
+            byte_at(msg, p + k, len);
+    }
+  }
+  reinterpret_cast<uint4*>(z + i * kSegments)[t] =
+      make_uint4(m[0], m[1], m[2], m[3]);
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
@@ -181,5 +238,20 @@ extern "C" int fdfs_sketch_ragged(const void* seg, const void* offsets,
       static_cast<const int32_t*>(lens), static_cast<const int32_t*>(order),
       static_cast<const uint32_t*>(perms), static_cast<uint32_t*>(sig),
       sig_stride, static_cast<uint32_t*>(z));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stages 1-3 at shingle width k >= 1 into z (n, 1024); poly_bk is
+// 0x01000193^k mod 2^32.  Launches on `stream`; returns a cudaError_t.
+extern "C" int fdfs_survivor_ragged_k(const void* seg, const void* offsets,
+                                      const void* lens, const void* order,
+                                      int n, int k, unsigned int poly_bk,
+                                      void* z, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  survivor_k_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seg), static_cast<const long long*>(offsets),
+      static_cast<const int32_t*>(lens), static_cast<const int32_t*>(order), k,
+      poly_bk, static_cast<uint32_t*>(z));
   return static_cast<int>(cudaGetLastError());
 }

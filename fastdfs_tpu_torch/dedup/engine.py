@@ -41,7 +41,7 @@ from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
                                                 survivor_ragged_cuda)
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
-                                           perm_words, survivor_ragged)
+                                           perm_words)
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
 from fastdfs_tpu_torch.parallel.mesh import cuda_devices
 
@@ -163,10 +163,11 @@ class DedupEngine:
         self.devices = self._fan_devices(devices)
         self.exact = ExactDigestIndex()
         self.near = MinHashLSHIndex(self.config.num_perms, self.config.lsh_bands)
-        # The sketch kernel is specialized to k = 5 and 64 permutations.
-        # Another permutation count runs stages 1-3 in the kernel and
-        # stage 4 in the stage-4 kernel; another shingle width runs stages
-        # 1-3 as the plain twin, on the same device.
+        # The fused sketch kernel is specialized to k = 5 and 64
+        # permutations.  Another permutation count or shingle width runs
+        # stages 1-3 in one launch of survivor_ragged_cuda (the fused
+        # kernel's z at k = 5, the general kernel at any other k) and
+        # stage 4 in the stage-4 kernel.
         cfg = self.config
         self._fused = (cfg.shingle == KERNEL_SHINGLE
                        and cfg.num_perms == KERNEL_PERMS)
@@ -259,12 +260,8 @@ class DedupEngine:
             sketch_ragged_cuda(seg, d_off, d_len, consts, d_order,
                                out[:, 5:], cfg.row_tile)
         else:
-            if cfg.shingle == KERNEL_SHINGLE:
-                z = survivor_ragged_cuda(seg, d_off, d_len, d_order,
-                                         cfg.row_tile)
-            else:
-                z = survivor_ragged(seg, d_off, d_len, cfg.shingle,
-                                    cfg.row_tile)
+            z = survivor_ragged_cuda(seg, d_off, d_len, cfg.shingle,
+                                     cfg.row_tile, d_order)
             signature_tiles_cuda(z, consts, out[:, 5:], cfg.row_tile)
         return out
 

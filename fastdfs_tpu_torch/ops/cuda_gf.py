@@ -5,12 +5,14 @@ kernel: ``fastdfs_tpu/ops/rs_code.py:_gf_matmul_jit`` (rs_code.py:170-178,
 driven by ``gf_matmul`` at :187-206), the product-table gather of a
 ``(rows, k)`` matrix over ``k`` shards, XOR-reduced over ``k``.
 
-``gf_matmul_cuda(matrix, shards, out=None)``: one launch per call.  The
-64 KiB product table and the block's coefficients sit in shared memory,
-a thread owns four columns of up to 32 rows and walks the shards with
-one coalesced load a step.  Bound on an H100: ``rows * k * L`` table
-lookups, against ``(k + rows) * L`` bytes (``chip_smoke.py`` computes
-both; PERF.md has the measured time).  On a CPU tensor it returns the
+``gf_matmul_cuda(matrix, shards, out=None)``: one launch per call.  Each
+coefficient's products come from three tables of 8, 8 and 4 bytes (the
+shard byte's 3-, 3- and 2-bit fields), built from the product table in
+shared memory and looked up four bytes at a time in registers by
+``__byte_perm``; a thread owns 16 columns of up to 32 rows and walks the
+shards with one coalesced 16-byte load a step.  Bound on an H100:
+``rows * k * L`` products, against ``(k + rows) * L`` bytes
+(``chip_smoke.py`` computes both; PERF.md has the measured time).  On a CPU tensor it returns the
 plain twin, ``ops.rs_code.gf_matmul_torch``; on a CUDA tensor it
 launches the kernel or raises.
 """

@@ -9,23 +9,30 @@ and writing only the ``(N, 64)`` signatures (and ``z`` when asked for).
 
 - ``sketch_ragged_cuda``: one launch over every chunk of a segment where
   it lies; the engine's path.
-- ``survivor_ragged_cuda``: the same launch, read back as stages 1-3
-  (``z``); the engine's path for a permutation count other than 64.
+- ``survivor_ragged_cuda``: stages 1-3 (``z``) at any shingle width
+  ``k``: at k = 5 the same launch, read back through its ``z`` output (the
+  engine's path for a permutation count other than 64); at any other
+  ``k`` one launch of the same file's general kernel
+  (``survivor_k_kernel``), which replaces the reference's XLA
+  ``survivor_segmin`` at those widths (``fastdfs_tpu/ops/minhash.py:98``;
+  the Pallas kernel is k = 5 only).
 - ``minhash_batch_cuda`` and ``survivor_segmin_cuda``: the padded
-  ``(N, L)`` entries, thin adapters over the same kernel with
-  ``offsets = i * L`` (the second asks the kernel for ``z``).
+  ``(N, L)`` entries, thin adapters over the same kernels with
+  ``offsets = i * L`` (the second asks for ``z``, at any ``k``).
 - ``signature_tiles_cuda``: stage 4 alone, over survivor vectors ``z``
   and the permutation words of any count or of a tensor-parallel rank's
-  slice, on the kernel ``csrc/minhash_sig.cu`` (one block a row, the
-  survivors compacted into shared memory).  It replaces the reference's
+  slice, on the kernel ``csrc/minhash_sig.cu`` (a warp a row on
+  persistent blocks, the survivors compacted into the warp's slice of
+  shared memory).  It replaces the reference's
   XLA stage 4 (``fastdfs_tpu/ops/minhash.py:minhash_signature``, and the
   ingest step's ``vmap(one_sig)``) wherever the fused kernel's 64
-  permutations do not apply: the ingest step's ``tp > 1`` ranks, the
-  fingerprint step and the engine at another count.  Bound: 4 KiB read a
+  permutations or its k = 5 do not apply: the ingest step's ``tp > 1``
+  ranks, the fingerprint step and the engine at another count or
+  shingle width.  Bound: 4 KiB read a
   row, against two instructions per survivor and permutation.
 
-The kernel is specialised to k = 5 and 64 permutations.  Bound on an
-H100: about 6 integer instructions per byte position against one byte
+The fused kernel is specialised to k = 5 and 64 permutations.  Bound on
+an H100: about 6 integer instructions per byte position against one byte
 read, so operations and HBM bytes bound it about equally (PERF.md gives
 the measured time beside it).  On a CPU tensor a wrapper returns its
 plain twin (``ops.minhash.sketch_ragged``, ``minhash_batch``,
@@ -38,11 +45,12 @@ from __future__ import annotations
 import torch
 
 from fastdfs_tpu_torch.ops import _build, check_batch, check_out, check_ragged
-from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
-                                           NUM_SEGMENTS, minhash_batch,
-                                           perm_words, perms_from_words,
-                                           signature_tiles, sketch_ragged,
-                                           survivor_ragged, survivor_segmin)
+from fastdfs_tpu_torch.ops.minhash import (_POLY_B, DEFAULT_PERMS,
+                                           DEFAULT_SHINGLE, NUM_SEGMENTS,
+                                           minhash_batch, perm_words,
+                                           perms_from_words, signature_tiles,
+                                           sketch_ragged, survivor_ragged,
+                                           survivor_segmin)
 
 KERNEL_PERMS = 64
 KERNEL_SHINGLE = 5
@@ -101,57 +109,84 @@ def sketch_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
 sketch_ragged_cuda.launches = 0
 
 
-def survivor_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
-                         lens: torch.Tensor, order: torch.Tensor | None = None,
-                         row_tile: int = 256) -> torch.Tensor:
-    """Stages 1-3 of the fused kernel over ragged chunks, read back
-    through its optional ``z`` output: uint32 ``(N, NUM_SEGMENTS)``,
-    bit-identical to ``ops.minhash.survivor_ragged`` (k = 5).  The
-    engine's path for a permutation count other than 64, whose stage 4
-    then runs on ``signature_tiles_cuda``."""
-    check_ragged(seg, offsets, lens, order)
-    if seg.device.type == "cpu":
-        return survivor_ragged(seg, offsets, lens, KERNEL_SHINGLE, row_tile)
+def _survivors(seg, offsets, lens, order, k: int) -> torch.Tensor:
+    """One launch of stages 1-3 over ragged chunks on the card: int32
+    ``(N, NUM_SEGMENTS)`` ``z``, from the fused kernel at k = 5 and from
+    the general kernel at any other ``k``."""
+    if k < 1:
+        raise ValueError(f"shingle width k must be at least 1, got {k}")
     n = offsets.shape[0]
     z = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32, device=seg.device)
-    if n:
+    if k == KERNEL_SHINGLE:
         sig = torch.empty((n, KERNEL_PERMS), dtype=torch.int32,
                           device=seg.device)
         _launch(seg, offsets, lens, order,
                 perm_words(KERNEL_PERMS, seg.device), sig, z)
-        survivor_ragged_cuda.launches += 1
+        return z
+    with torch.cuda.device(seg.device):
+        stream = torch.cuda.current_stream(seg.device).cuda_stream
+        rc = _build.library().fdfs_survivor_ragged_k(
+            seg.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
+            None if order is None else order.data_ptr(), n, k,
+            pow(int(_POLY_B), k, 1 << 32), z.data_ptr(), stream)
+    _build.check_launch(rc, "survivor_ragged_k")
+    return z
+
+
+def survivor_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
+                         lens: torch.Tensor, k: int = DEFAULT_SHINGLE,
+                         row_tile: int = 256,
+                         order: torch.Tensor | None = None) -> torch.Tensor:
+    """Stages 1-3 over ragged chunks at shingle width ``k``: uint32 ``(N,
+    NUM_SEGMENTS)``, bit-identical to ``ops.minhash.survivor_ragged`` (the
+    same signature, plus the optional int32 longest-first ``order``).  One
+    launch: the fused kernel's ``z`` output at k = 5, the general kernel
+    at any other ``k``.  The engine's path wherever the fused kernel's 64
+    permutations or k = 5 do not apply; stage 4 then runs on
+    ``signature_tiles_cuda``.  ``row_tile`` only sizes the plain twin's
+    tiles on the CPU."""
+    check_ragged(seg, offsets, lens, order)
+    if seg.device.type == "cpu":
+        return survivor_ragged(seg, offsets, lens, k, row_tile)
+    n = offsets.shape[0]
+    if not n:
+        return torch.empty((0, NUM_SEGMENTS), dtype=torch.uint32,
+                           device=seg.device)
+    z = _survivors(seg, offsets, lens, order, k)
+    survivor_ragged_cuda.launches += 1
     return z.view(torch.uint32)
 
 
 survivor_ragged_cuda.launches = 0
 
 
-def _padded_launch(data, lengths, z=None) -> torch.Tensor:
+def _padded_launch(data, lengths) -> torch.Tensor:
     """The fused kernel over padded rows: int32 (N, 64) signatures."""
     n, L = data.shape
     dev = data.device
     sig = torch.empty((n, KERNEL_PERMS), dtype=torch.int32, device=dev)
     offsets = torch.arange(n, dtype=torch.int64, device=dev) * L
     _launch(data.reshape(-1), offsets, lengths.clamp(0, L), None,
-            perm_words(KERNEL_PERMS, dev), sig, z)
+            perm_words(KERNEL_PERMS, dev), sig, None)
     return sig
 
 
 def survivor_segmin_cuda(data: torch.Tensor, lengths: torch.Tensor,
                          k: int = DEFAULT_SHINGLE) -> torch.Tensor:
     """uint8 ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, NUM_SEGMENTS)``,
-    bit-identical to ``ops.minhash.survivor_segmin``: stages 1-3 of the
-    fused kernel, read back through its optional ``z`` output."""
+    bit-identical to ``ops.minhash.survivor_segmin``: stages 1-3 at
+    shingle width ``k``, one launch of the kernels of
+    ``survivor_ragged_cuda`` over the rows (``offsets = i * L``)."""
     check_batch(data, lengths)
     if data.device.type == "cpu":
         return survivor_segmin(data, lengths, k)
-    if k != KERNEL_SHINGLE:
-        raise NotImplementedError("the sketch kernel is specialized to k=5")
-    n = data.shape[0]
-    z = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32, device=data.device)
-    if n:
-        _padded_launch(data, lengths, z)
-        survivor_segmin_cuda.launches += 1
+    n, L = data.shape
+    if not n:
+        return torch.empty((0, NUM_SEGMENTS), dtype=torch.uint32,
+                           device=data.device)
+    offsets = torch.arange(n, dtype=torch.int64, device=data.device) * L
+    z = _survivors(data.reshape(-1), offsets, lengths.clamp(0, L), None, k)
+    survivor_segmin_cuda.launches += 1
     return z.view(torch.uint32)
 
 

@@ -13,8 +13,9 @@ outputs are bit-identical:
    ``a_j * x + b_j`` min-reduced over the non-``EMPTY`` entries of ``z``.
 
 The CUDA sketch kernel (``cuda_minhash``) computes all four stages in
-one pass over ragged chunks; this module is its reference
-(``sketch_ragged``) and the path a CPU tensor takes.  Words are int64
+one pass over ragged chunks at k = 5, and stages 1-3 alone at any other
+``k``; this module is its reference (``sketch_ragged``,
+``survivor_ragged``) and the path a CPU tensor takes.  Words are int64
 masked to 32 bits inside;
 public functions return uint32 tensors (see ``ops/__init__.py``).
 """
@@ -127,10 +128,20 @@ def survivor_segmin(data, lengths, k: int = DEFAULT_SHINGLE) -> torch.Tensor:
     uint32 ``(N, NUM_SEGMENTS)`` survivor vector ``z``, on the data's device.
 
     CONTRACT: rows are zero past their length (shared with ``sha1_batch``).
+
+    The plain twin of the sketch kernels' stages 1-3
+    (``cuda_minhash.survivor_segmin_cuda``); ``survivor_segmin.cuda_calls``
+    counts its calls on a CUDA tensor, which the card's paths leave to the
+    kernels.
     """
     data = torch.as_tensor(data, dtype=torch.uint8)
+    if data.device.type == "cuda":
+        survivor_segmin.cuda_calls += 1
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=data.device)
     return narrow(_survivor_segmin(data, lengths, k))
+
+
+survivor_segmin.cuda_calls = 0
 
 
 def minhash_signature(hashes: torch.Tensor, num_perms: int = DEFAULT_PERMS,
@@ -179,12 +190,20 @@ def survivor_ragged(seg: torch.Tensor, offsets: torch.Tensor,
     """Stages 1-3 of ragged chunks: uint8 ``(S,)`` segment + int64 offsets
     and int32 lengths ``(N,)`` -> uint32 ``(N, NUM_SEGMENTS)``.  The
     chunks go through ``survivor_segmin`` in zero-padded
-    ``(row_tile, bucket)`` tiles (``ops.ragged_batches``)."""
+    ``(row_tile, bucket)`` tiles (``ops.ragged_batches``).
+
+    The plain twin of ``cuda_minhash.survivor_ragged_cuda``;
+    ``survivor_ragged.cuda_calls`` counts its calls on a CUDA tensor."""
+    if seg.device.type == "cuda":
+        survivor_ragged.cuda_calls += 1
     z = torch.zeros((offsets.shape[0], NUM_SEGMENTS), dtype=torch.int64,
                     device=seg.device)
     for rows, batch, ln in ragged_batches(seg, offsets, lens, row_tile):
         z[rows] = widen(survivor_segmin(batch, ln, k))
     return narrow(z)
+
+
+survivor_ragged.cuda_calls = 0
 
 
 def signature_tiles(z: torch.Tensor, num_perms: int = DEFAULT_PERMS,

@@ -14,8 +14,8 @@ in three disciplines:
 - ``gf_matmul``: on the caller's device, in place of the reference's
   XLA ``_gf_matmul_jit`` (rs_code.py:170-206), which is not a Pallas
   kernel.  A CUDA tensor goes to the hand-written kernel
-  ``ops.cuda_gf.gf_matmul_cuda`` (``csrc/gf_matmul.cu``: the product
-  table and the coefficients in shared memory, one launch per call); a
+  ``ops.cuda_gf.gf_matmul_cuda`` (``csrc/gf_matmul.cu``: products in
+  registers from small per-coefficient tables, one launch per call); a
   CPU tensor to its plain twin ``gf_matmul_torch``.
 - ``gf_matmul_torch``: the plain PyTorch twin.  The product-table rows
   of the matrix's coefficients, ``(k, rows, 256)`` uint8 (at most 64 KiB,
@@ -28,13 +28,14 @@ in three disciplines:
   compile-once shapes.
 
 Bound on an H100: ``(k + rows) * L`` bytes over the memory rate, or its
-table lookups where they take longer (``chip_smoke.py`` computes both;
-PERF.md has the measured times).
+``rows * k * L`` products where they take longer (``chip_smoke.py``
+computes both; PERF.md has the measured times).
 
 The generator matrix is systematic Cauchy ([I; C] with C[j][i] =
 inv(x_i ^ a_j), x_i = i, a_j = k + j), so every k x k submatrix inverts
 and any k surviving shards rebuild the stripe; ``decode_matrix`` inverts
-the surviving rows by Gauss-Jordan on the host (k <= 32, microseconds).
+the surviving rows by Gauss-Jordan on the host (k <= 32; PERF.md has
+its time beside the product's).
 """
 
 from __future__ import annotations

@@ -16,12 +16,13 @@ on its shard, inside one process, and the collectives of
    the SHA-1 kernel (``sha1_batch_cuda``) on its rows, then the digests
    are all-gathered along ``dp``.
 3. **MinHash, tensor-parallel (tp)**: each rank runs MinHash stages 1-3
-   through the sketch kernel (``survivor_segmin_cuda``) and stage 4 for
-   its ``P / tp`` permutations through the stage-4 kernel
-   (``signature_tiles_cuda``, given the rank's columns of the
+   through the sketch kernels (``survivor_segmin_cuda``: the fused
+   kernel's ``z`` at shingle 5, the general kernel at any other width)
+   and stage 4 for its ``P / tp`` permutations through the stage-4
+   kernel (``signature_tiles_cuda``, given the rank's columns of the
    permutation words); signatures are all-gathered along ``tp``, then
-   along ``dp``.  With ``tp == 1`` and 64 permutations the fused kernel
-   (``minhash_batch_cuda``) signs the rows whole.
+   along ``dp``.  With ``tp == 1``, 64 permutations and shingle 5 the
+   fused kernel (``minhash_batch_cuda``) signs the rows whole.
 4. **Index query (dp + pmax)**: the signature index is row-sharded over
    ``dp``; each rank scores the gathered signatures against its shard
    through the index kernel (``index_best_cuda``) and the best
@@ -34,10 +35,11 @@ collectives: rows shard over a 1-D ``dp`` mesh, each rank runs both
 kernels on its rows.
 
 On CPU ranks every kernel wrapper takes its plain twin; on CUDA ranks it
-launches its kernel or raises: the sketch kernel raises for a shingle
-other than 5, where the reference answers in XLA.  The plain twins of
-stages 1 and 4, ``block_candidates`` (from ``ops.gear_cdc``) and
-``index_best`` (from ``ops.cuda_index``), stay importable from here.
+launches its kernel or raises, at every shingle width.  The plain twins
+of stages 1 and 4, ``block_candidates`` (from ``ops.gear_cdc``) and
+``index_best`` (from ``ops.cuda_index``), and ``fingerprint_mesh`` (from
+``parallel.mesh``, where the reference defines it in this module) stay
+importable from here.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ from fastdfs_tpu_torch.ops.gear_cdc import (  # noqa: F401 (re-export)
     WINDOW, block_candidates, gear_values)
 from fastdfs_tpu_torch.ops.minhash import perm_words
 from fastdfs_tpu_torch.parallel.collectives import all_gather, pmax, ppermute
-from fastdfs_tpu_torch.parallel.mesh import Mesh
+from fastdfs_tpu_torch.parallel.mesh import (  # noqa: F401 (re-export)
+    Mesh, fingerprint_mesh)
 
 HALO = WINDOW - 1
 
@@ -129,8 +132,8 @@ def _sign_rows(rows: torch.Tensor, lens: torch.Tensor, shingle: int,
                words) -> torch.Tensor:
     """int32 bits of the MinHash signatures of padded rows: the fused
     kernel when ``words`` is None (all 64 permutations, k = 5), else
-    kernel stages 1-3 and the stage-4 kernel over the permutation
-    ``words``."""
+    kernel stages 1-3 at width ``shingle`` and the stage-4 kernel over
+    the permutation ``words``."""
     if words is None:
         return minhash_batch_cuda(rows, lens).view(torch.int32)
     z = survivor_segmin_cuda(rows, lens, shingle)

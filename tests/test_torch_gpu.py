@@ -44,7 +44,7 @@ from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
 # tests/ is on sys.path under pytest; a host may have another package
 # named ``tests``, which would shadow this directory as a package.
 from torch_native import (dense_pair, plant_candidate, plant_wide,
-                          seam_plants, wide_seam_plants)
+                          seam_plants, shingle_segment, wide_seam_plants)
 
 
 @pytest.fixture
@@ -162,7 +162,7 @@ def _check_ragged(dev, seg, offsets, lens, row_tile):
                                                row_tile=row_tile, with_z=True)
     assert torch.equal(sigs.view(torch.int32), plain_sig.view(torch.int32))
     before = survivor_ragged_cuda.launches
-    z = survivor_ragged_cuda(d_seg, d_off, d_len, d_ord)
+    z = survivor_ragged_cuda(d_seg, d_off, d_len, order=d_ord)
     assert survivor_ragged_cuda.launches == before + 1
     assert torch.equal(z.view(torch.int32), plain_z.view(torch.int32))
 
@@ -713,7 +713,7 @@ def _survivors(dev, rng, n: int, length: int = 4096) -> torch.Tensor:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [1, 7, 32, 33, 64, 100, 128, 300])
+@pytest.mark.parametrize("p", [1, 7, 31, 32, 33, 64, 100, 128, 300])
 def test_stage4_kernel_matches_plain_twin(cuda_device, p):
     rng = np.random.RandomState(p)
     z = _survivors(cuda_device, rng, 517)
@@ -766,3 +766,133 @@ def test_ingest_and_fingerprint_steps_at_other_counts(cuda_device, perms):
                                  num_perms=perms)
     _, sigs = step(d, ln)
     assert np.array_equal(_u32(sigs), plain)
+
+
+# Stages 1-3 at any shingle width (csrc/minhash_survivor.cu's general
+# kernel), the GF(2^8) kernel at the field's row and shard counts, and the
+# stage-4 kernel over more rows than its persistent grid has warps and on
+# rows off a 16-byte boundary.
+
+SHINGLES = [1, 2, 3, 4, 6, 8, 13, 32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", SHINGLES)
+def test_general_k_kernel_matches_plain_twin(cuda_device, k):
+    seg, offsets, lens = shingle_segment(np.random.default_rng(100 + k), k)
+    d_seg, d_off, d_len, d_ord = _on_card(cuda_device, seg, offsets, lens)
+    before = survivor_ragged_cuda.launches
+    got = survivor_ragged_cuda(d_seg, d_off, d_len, k, order=d_ord)
+    unordered = survivor_ragged_cuda(d_seg, d_off, d_len, k)
+    torch.cuda.synchronize()
+    assert survivor_ragged_cuda.launches == before + 2
+    want = minhash.survivor_ragged(d_seg[:len(seg)], d_off, d_len, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(unordered.view(torch.int32), want.view(torch.int32))
+    # The padded entry over the same kernel.
+    rng = np.random.RandomState(k)
+    data, ln = _batch(rng, 64, 2048, [0, 1, max(k - 1, 0), k, k + 1, 2048])
+    d = torch.from_numpy(data).to(cuda_device)
+    dl = torch.from_numpy(ln).to(cuda_device)
+    before = survivor_segmin_cuda.launches
+    got = survivor_segmin_cuda(d, dl, k)
+    torch.cuda.synchronize()
+    assert survivor_segmin_cuda.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       minhash.survivor_segmin(d, dl, k).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4, 8])
+def test_general_k_kernel_on_a_64mb_segment(cuda_device, k):
+    rng = np.random.RandomState(k)
+    seg = rng.randint(0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    cuts = chunk_stream_np(seg)
+    offsets = [0] + cuts[:-1]
+    lens = [b - a for a, b in zip(offsets, cuts)]
+    d_seg, d_off, d_len, d_ord = _on_card(cuda_device, seg, offsets, lens)
+    got = survivor_ragged_cuda(d_seg, d_off, d_len, k, order=d_ord)
+    want = minhash.survivor_ragged(d_seg[:len(seg)], d_off, d_len, k,
+                                   row_tile=4096)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got.view(torch.int32) != -1).sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shingle,perms", [(4, 64), (8, 32)])
+def test_engine_at_other_shingles_on_card_matches_cpu(cuda_device, shingle,
+                                                      perms):
+    rng = np.random.RandomState(shingle)
+    data = rng.randint(0, 256, size=300_000, dtype=np.uint8).tobytes()
+    cfg = DedupConfig(min_size=64, avg_bits=8, max_size=1024, row_tile=32,
+                      num_perms=perms, shingle=shingle)
+    before = (survivor_ragged_cuda.launches, signature_tiles_cuda.launches)
+    calls = (minhash.survivor_ragged.cuda_calls,
+             minhash.survivor_segmin.cuda_calls)
+    got = DedupEngine(cfg, device=cuda_device).fingerprint(data)
+    torch.cuda.synchronize()
+    assert (survivor_ragged_cuda.launches - before[0],
+            signature_tiles_cuda.launches - before[1]) == (1, 1)
+    assert (minhash.survivor_ragged.cuda_calls,
+            minhash.survivor_segmin.cuda_calls) == calls
+    ref = DedupEngine(cfg, device="cpu").fingerprint(data)
+    assert got[0] == ref[0]
+    assert np.array_equal(got[1], ref[1])
+    assert np.array_equal(got[2], ref[2])
+
+
+@pytest.mark.gpu
+def test_ingest_step_at_shingle_4_on_card(cuda_device):
+    rng = np.random.RandomState(4)
+    streams = torch.from_numpy(
+        rng.randint(0, 256, (2, 1 << 16), dtype=np.uint8)).to(cuda_device)
+    data, lens = _batch(rng, 64, 2048, [2048, 0, 1, 3, 4, 5])
+    d = torch.from_numpy(data).to(cuda_device)
+    ln = torch.from_numpy(lens).to(cuda_device)
+    plain = _u32(minhash.minhash_batch(d, ln, 64, 4))
+    index = plain[::3].copy()
+    for n in (1, 8):
+        mesh = make_mesh(n, devices=[cuda_device] * n)
+        before = (survivor_segmin_cuda.launches, signature_tiles_cuda.launches)
+        _, _, sigs, best = make_ingest_step(mesh, shingle=4)(
+            streams.view(2, mesh.shape["sp"], -1), d, ln, index)
+        torch.cuda.synchronize()
+        assert (survivor_segmin_cuda.launches - before[0],
+                signature_tiles_cuda.launches - before[1]) == (n, n)
+        assert np.array_equal(_u32(sigs), plain)
+        assert (best[::3] == 1.0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 17, 255])
+@pytest.mark.parametrize("k", [1, 17, 255])
+def test_gf_kernel_at_the_fields_row_and_shard_counts(cuda_device, rows, k):
+    rng = np.random.default_rng(rows * 256 + k)
+    mat = rng.integers(0, 256, (rows, k), dtype=np.uint8)
+    length = 4096 + 16 * 5 + 7          # a second tile and a byte tail
+    shards = torch.from_numpy(rng.integers(0, 256, (k, length),
+                                           dtype=np.uint8)).to(cuda_device)
+    _gf_check(mat, shards)
+    _gf_check(mat, shards[:, 5:])       # rows off a 16-byte boundary
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [32, 300])
+def test_stage4_kernel_on_many_and_unaligned_rows(cuda_device, p):
+    # More rows than the persistent grid has warps (each warp signs
+    # several, the next loaded while the current is signed), on rows 1028
+    # words apart and on the same rows from a base off 16 bytes (4-byte
+    # loads).
+    rng = np.random.RandomState(p)
+    n = 20_000
+    zs = rng.randint(0, 2**32, (n, 1028), dtype=np.uint64).astype(np.uint32)
+    zs[rng.random_sample(zs.shape) < 0.96] = 0xFFFFFFFF
+    zs[:3] = 0xFFFFFFFF
+    z_all = torch.from_numpy(zs.view(np.int32)).to(cuda_device)
+    words = minhash.perm_words(p, cuda_device)
+    for z in (z_all[:, :1024], z_all[:, 1:1025]):
+        got = signature_tiles_cuda(z, words)
+        want = minhash.signature_tiles(z, p, minhash.perms_from_words(words),
+                                       256)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (got.view(torch.int32)[:3] == -1).all()

@@ -17,9 +17,10 @@ harness's configs.  ``chip_smoke.py`` loads this file by its path (a
 host may have another package named ``tests``), and this file loads
 ``tests/harness.py`` the same way.
 
-It also holds the gear-CDC inputs that the port's tests and
-``chip_smoke.py`` share: ``plant_candidate``, ``seam_plants``,
-``plant_wide``, ``wide_seam_plants`` and ``dense_pair``.
+It also holds the inputs that the port's tests and ``chip_smoke.py``
+share: for the gear CDC ``plant_candidate``, ``seam_plants``,
+``plant_wide``, ``wide_seam_plants`` and ``dense_pair``; for the sketch
+at other shingle widths ``shingle_segment``.
 """
 
 from __future__ import annotations
@@ -242,6 +243,25 @@ def dense_pair(avg_bits: int) -> tuple[int, int]:
         0xFFFFFFFF)
     xs, ys = np.nonzero((h & np.uint64((1 << avg_bits) - 1)) == 0)
     return int(xs[0]), int(ys[0])
+
+
+def shingle_segment(rng: np.random.Generator, k: int
+                    ) -> tuple[bytes, list[int], list[int]]:
+    """(segment, offsets, lengths) for stages 1-3 at shingle width k:
+    lengths 0, 1, k - 1, k, k + 1 and a few hundred at every start
+    offset mod 4, each followed by non-zero bytes, then a chunk of three
+    of the general kernel's 4096-position passes and a tail."""
+    seg = bytearray()
+    offsets, lens = [], []
+    for align in range(4):
+        for n in sorted({0, 1, k - 1, k, k + 1, 300 + k}) + (
+                [3 * 4096 + 77] if align == 3 else []):
+            seg += rng.integers(1, 256, 1 + (align - len(seg) - 1) % 4,
+                                dtype=np.uint8).tobytes()
+            offsets.append(len(seg))
+            lens.append(n)
+            seg += rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    return bytes(seg), offsets, lens
 
 
 if __name__ == "__main__":
