@@ -18,13 +18,18 @@ before the last line):
    the card could take (the bound); an edge segment (lengths 0-8, 55-57,
    63-65 at every start offset mod 4, each followed by non-zero bytes,
    and a last chunk past max_size); one chunk as large as the segment;
-   and the padded ``(N, L)`` adapters at 256 x 2048.  Stages 1-3 at
-   shingle widths 4 and 8 on the general kernel (``survivor_ragged_cuda``
-   with ``k``): on the segment (timed, one launch each) and on an edge
+   and the padded ``(N, L)`` adapters at 256 x 2048.  The general-width
+   kernel at shingle widths 4 and 8, in both forms: fused with stage 4
+   (``sketch_ragged_cuda(..., k=k)``, signatures and ``z`` from one
+   launch, against ``minhash.sketch_ragged(..., 64, k)``) and stages 1-3
+   alone (``survivor_ragged_cuda`` with ``k``, against
+   ``minhash.survivor_ragged``): on the segment (timed: CUDA-event ms,
+   device ms and the bound of each form, one launch each) and on an edge
    segment each (lengths 0, 1, k - 1, k, k + 1 and a few hundred at every
    start offset mod 4, each followed by non-zero bytes, and a chunk of
-   three of the kernel's 4096-position passes), and the padded adapter at
-   k = 4, bit for bit against the plain twin.  Then the gear CDC
+   three of the kernel's 4096-position passes), and the padded adapters
+   at k = 4 (``minhash_batch_cuda(..., 64, 4)`` and
+   ``survivor_segmin_cuda``), bit for bit against the plain twins.  Then the gear CDC
    kernel's compacted form (``csrc/gear_cdc.cu``) against its plain twin
    and the host scan: on the segment as the client stages it (more tiles
    than the kernel's persistent grid has blocks; timed), below a
@@ -54,9 +59,9 @@ before the last line):
 4. Where one segment's engine time goes: a torch.profiler pass over
    ``DedupEngine.fingerprint``, device time by kernel and the idle share.
    Then the engine at ``DedupConfig(shingle=4)`` on a seeded 64 MB
-   segment with cuts, a counted run: one launch each of the SHA-1
-   kernel, the general-k stages 1-3 and the stage-4 kernel, no plain
-   twin, digests equal to hashlib and signatures to the plain twins'.
+   segment with cuts, a counted run: one launch of the SHA-1 kernel and
+   one of the general-width sketch kernel (stage 4 fused), no plain twin,
+   digests equal to hashlib and signatures to the plain twins'.
 5. The client's upload fingerprint: ``client.fingerprint_buffer`` on the
    card over corpus file A and a second seeded payload, both exactly
    2^26 bytes (so the device CDC's power-of-two buffer has no slack of
@@ -97,8 +102,10 @@ before the last line):
    stage-4 kernel (``csrc/minhash_sig.cu``) on a dp rank's real survivor
    vectors at each tp rank's 32 permutations, at 64 and at P = 1, 7, 31,
    33, 100 and 300 with all-EMPTY rows, against their plain twins, bit
-   for bit.  Both steps again at shingle 4 (stages 1-3 on the general
-   kernel on every rank), counted, equal to the plain twins.  Times of
+   for bit.  Both steps again at shingle 4, counted, equal to the plain
+   twins: the 1-rank step signs on the general-width kernel's fused form
+   (it holds all 64 permutations), the 8-rank step's tp = 2 ranks run its
+   ``z`` form and then stage 4 on their slices.  Times of
    both steps (the 8-rank step also with stage 4 swapped back to its
    plain twin, and at shingle 4), and of the stage-1 CDC, the index query
    and stage 4 on their kernels beside their plain twins and bounds.
@@ -136,16 +143,17 @@ before the last line):
 
 The kernels' launch counts are those of the main-path runs in phases 3,
 4, 5, 6, 7, 8, 9 and 10 (each counted from 0 just before its run; the
-general-k kernel's from the runs at shingle 4); launches made only to
-time or compare a kernel are not counted.  Those runs must call no plain
+general-width kernel's two forms from the runs at shingle 4); launches
+made only to time or compare a kernel are not counted.  Those runs must call no plain
 twin on a CUDA tensor (the ``cuda_calls`` of ``gear_window``,
 ``index_best``, ``rs_code.gf_matmul_torch``, ``minhash.survivor_ragged``,
 ``minhash.survivor_segmin`` and ``minhash.signature_tiles`` stay 0).
 The second-to-last line is a JSON object with one entry per kernel (the
-gear kernel's two forms as two entries, the sketch file's fused and
-general-k kernels as two; the six that replace jitted XLA, not a Pallas
-kernel, say so in ``replaces_kind``); the last is ``{"ok": true,
-"device": {...}}``.
+gear kernel's two forms as two entries, the sketch file's k = 5 kernel
+as one and its general-width kernel's two forms, fused ``sketch_k`` and
+``z`` alone ``survivor_k``, as two; the seven that replace jitted XLA,
+not a Pallas kernel, say so in ``replaces_kind``); the last is ``{"ok":
+true, "device": {...}}``.
 Without a CUDA card the script exits non-zero and prints no result.
 """
 
@@ -420,14 +428,14 @@ def time_kernel(rec, fn, kernel: str, n: int = 20) -> None:
     rec.device_ms = device_ms(fn, kernel, n)
 
 
-def sketch_bound(lens: np.ndarray, survivors: int) -> tuple[float, str]:
-    """(ms, by) of one fused sketch launch: each chunk byte and its
-    offset, length and order entry read once and 256 signature bytes
-    written per chunk, against
-    the positions p <= bound and stage 4 over this run's non-EMPTY
-    segment minima."""
+def sketch_bound(lens: np.ndarray, survivors: int, k: int = 5
+                 ) -> tuple[float, str]:
+    """(ms, by) of one fused sketch launch at shingle width k: each chunk
+    byte and its offset, length and order entry read once and 256
+    signature bytes written per chunk, against the positions p <= bound
+    and stage 4 over this run's non-EMPTY segment minima."""
     lens = lens.astype(np.int64)
-    bound = np.where(lens >= 5, lens - 5, np.maximum(lens, 1) - 1)
+    bound = np.where(lens >= k, lens - k, np.maximum(lens, 1) - 1)
     t_bytes = float(lens.sum() + 272 * len(lens)) / HBM_BYTES_PER_S
     ops = ((bound + 1).sum() * SURVIVOR_OPS_PER_POSITION
            + survivors * 64 * STAGE4_OPS_PER_SURVIVOR_PERM)
@@ -626,9 +634,9 @@ def survivor_k_bound(lens: np.ndarray, k: int) -> tuple[float, str]:
 
 def check_survivor_k(dev, what: str, seg: bytes, offsets, lens, k: int,
                      rec, timed: bool) -> None:
-    """Stages 1-3 at width ``k`` (the general kernel) on one segment, one
-    launch, bit for bit against the plain twin; with ``timed``, the
-    times and the bound go into the record."""
+    """Stages 1-3 at width ``k`` (the general-width kernel's ``z`` form)
+    on one segment, one launch, bit for bit against the plain twin; with
+    ``timed``, the times and the bound go into the record."""
     d_seg, d_off, d_len, d_ord = on_card(dev, seg, offsets, lens)
     before = survivor_ragged_cuda.launches
     got = survivor_ragged_cuda(d_seg, d_off, d_len, k, order=d_ord)
@@ -639,35 +647,84 @@ def check_survivor_k(dev, what: str, seg: bytes, offsets, lens, k: int,
         d_seg[:len(seg)], d_off, d_len, k, PLAIN_ROW_TILE))
     err = int(np.abs(i64(got) - i64(want)).max())
     rec.max_abs_err = max(rec.max_abs_err, err)
-    check(err == 0, f"general-k kernel != plain twin at k = {k} on the "
-          f"{what}")
+    check(err == 0, f"general-width kernel's z form != plain twin at k = "
+          f"{k} on the {what}")
     survivors = int((i64(got) != int(minhash.EMPTY)).sum())
     if not timed:
-        print(f"  general-k kernel, k = {k}, {what} ({len(lens)} chunks): "
-              f"one launch, bit-exact")
+        print(f"  general-width kernel, z form, k = {k}, {what} "
+              f"({len(lens)} chunks): one launch, bit-exact")
         return
 
     def fn():
         return survivor_ragged_cuda(d_seg, d_off, d_len, k, order=d_ord)
-    ms, dev_ms = median_ms(fn), device_ms(fn, "survivor_k_kernel")
+    ms, dev_ms = median_ms(fn), device_ms(fn, "sketch_k_kernel")
     bound, by = survivor_k_bound(np.asarray(lens), k)
     if k == SHINGLES[0]:
         rec.ms, rec.device_ms, rec.plain_ms = ms, dev_ms, plain_ms
         rec.bound_ms, rec.bound_by = bound, by
-    print(f"  general-k kernel, k = {k}, {what}: {survivors} survivors, one "
-          f"launch, {ms:.4f} ms a call (CUDA events), {fmt_ms(dev_ms)} ms on "
-          f"the device (plain twin {plain_ms:.1f}, bound {bound:.4f} by "
-          f"{by}); bit-exact")
+    print(f"  general-width kernel, z form, k = {k}, {what}: {survivors} "
+          f"survivors, one launch, {ms:.4f} ms a call (CUDA events), "
+          f"{fmt_ms(dev_ms)} ms on the device (plain twin {plain_ms:.1f}, "
+          f"bound {bound:.4f} by {by}); bit-exact")
 
 
-def check_shingles(dev, rng, seg: bytes, offsets, lens, rec) -> None:
-    """The general kernel at k = 4 and 8 on the 64 MB segment (timed) and
-    on an edge segment each, and the padded adapter at k = 4."""
+def check_sketch_k(dev, what: str, seg: bytes, offsets, lens, k: int, rec,
+                   timed: bool) -> None:
+    """The general-width kernel's fused form at width ``k`` on one
+    segment: signatures and ``z`` from one launch, bit for bit against
+    ``minhash.sketch_ragged(..., 64, k)``; with ``timed``, the signature
+    call's times and bound go into the record."""
+    d_seg, d_off, d_len, d_ord = on_card(dev, seg, offsets, lens)
+    words = minhash.perm_words(64, dev)
+    before = sketch_ragged_cuda.launches
+    sig, z = sketch_ragged_cuda(d_seg, d_off, d_len, words, d_ord, k=k,
+                                with_z=True)
+    torch.cuda.synchronize()
+    check(sketch_ragged_cuda.launches == before + 1,
+          f"fused sketch at k = {k} on the {what}: not one launch")
+    (want, want_z), plain_ms = once_ms(lambda: minhash.sketch_ragged(
+        d_seg[:len(seg)], d_off, d_len, 64, k, row_tile=PLAIN_ROW_TILE,
+        with_z=True))
+    err = max(int(np.abs(i64(sig) - i64(want)).max()),
+              int(np.abs(i64(z) - i64(want_z)).max()))
+    rec.max_abs_err = max(rec.max_abs_err, err)
+    check(err == 0, f"general-width kernel's fused form != plain twin at "
+          f"k = {k} on the {what}")
+    survivors = int((i64(want_z) != int(minhash.EMPTY)).sum())
+    check(survivors > 0, f"fused sketch at k = {k}: the {what} has no "
+          f"survivor")
+    if not timed:
+        print(f"  general-width kernel, fused, k = {k}, {what} "
+              f"({len(lens)} chunks): signatures and z from one launch, "
+              f"bit-exact")
+        return
+
+    def fn():
+        return sketch_ragged_cuda(d_seg, d_off, d_len, words, d_ord, k=k)
+    ms, dev_ms = median_ms(fn), device_ms(fn, "sketch_k_kernel")
+    bound, by = sketch_bound(np.asarray(lens), survivors, k)
+    if k == SHINGLES[0]:
+        rec.ms, rec.device_ms, rec.plain_ms = ms, dev_ms, plain_ms
+        rec.bound_ms, rec.bound_by = bound, by
+    print(f"  general-width kernel, fused, k = {k}, {what}: {survivors} "
+          f"survivors, one launch, {ms:.4f} ms a call (CUDA events), "
+          f"{fmt_ms(dev_ms)} ms on the device (plain twin {plain_ms:.1f}, "
+          f"bound {bound:.4f} by {by}); signatures and z bit-exact")
+
+
+def check_shingles(dev, rng, seg: bytes, offsets, lens, rec_fused,
+                   rec_z) -> None:
+    """The general-width kernel at k = 4 and 8, fused and z alone, on the
+    64 MB segment (timed) and on an edge segment each, and the padded
+    adapters at k = 4."""
     for k in SHINGLES:
-        check_survivor_k(dev, f"{SEGMENT >> 20} MB segment", seg, offsets,
-                         lens, k, rec, timed=True)
+        big = f"{SEGMENT >> 20} MB segment"
+        check_sketch_k(dev, big, seg, offsets, lens, k, rec_fused, timed=True)
+        check_survivor_k(dev, big, seg, offsets, lens, k, rec_z, timed=True)
         edge, e_off, e_len = shingle_segment(rng, k)
-        check_survivor_k(dev, "edge segment", edge, e_off, e_len, k, rec,
+        check_sketch_k(dev, "edge segment", edge, e_off, e_len, k, rec_fused,
+                       timed=False)
+        check_survivor_k(dev, "edge segment", edge, e_off, e_len, k, rec_z,
                          timed=False)
     data = rng.integers(0, 256, (256, 2048), dtype=np.uint8)
     ln = rng.integers(1, 2049, 256).astype(np.int32)
@@ -677,7 +734,11 @@ def check_shingles(dev, rng, seg: bytes, offsets, lens, rec) -> None:
     check(np.array_equal(i64(survivor_segmin_cuda(d, d_ln, 4)),
                          i64(minhash.survivor_segmin(d, d_ln, 4))),
           "padded survivor adapter at k = 4 != plain twin")
-    print("  padded (256, 2048) survivor adapter at k = 4: bit-exact")
+    check(np.array_equal(i64(minhash_batch_cuda(d, d_ln, 64, 4)),
+                         i64(minhash.minhash_batch(d, d_ln, 64, 4))),
+          "padded sketch adapter at k = 4 != plain twin")
+    print("  padded (256, 2048) adapters at k = 4 (fused and z alone): "
+          "bit-exact")
 
 
 def check_gear(rec, what: str, buf: torch.Tensor, n: int, bits: int, k: int
@@ -830,8 +891,8 @@ def check_gear_kernel(dev, seg: bytes, rec) -> None:
           f"chunk_stream_np; bit-exact")
 
 
-def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear, rec_shingle
-                  ) -> tuple[bytes, list[int]]:
+def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear, rec_sketch_k,
+                  rec_shingle) -> tuple[bytes, list[int]]:
     rng = np.random.default_rng(SEED)
     print("phase 2: kernels vs plain twins on the card (ms = one launch "
           "over the whole segment; bound = least time for its work)")
@@ -848,7 +909,8 @@ def phase_kernels(dev, rec_sha1, rec_sketch, rec_gear, rec_shingle
     check_padded_adapters(dev, rng)
     offsets = [0] + cuts[:-1]
     check_shingles(dev, rng, seg, offsets,
-                   [b - a for a, b in zip(offsets, cuts)], rec_shingle)
+                   [b - a for a, b in zip(offsets, cuts)], rec_sketch_k,
+                   rec_shingle)
     check_gear_kernel(dev, seg, rec_gear)
     return seg, cuts
 
@@ -1094,9 +1156,9 @@ def phase_profile(dev) -> None:
 
 def check_engine_shingle(dev, card: str) -> dict[str, int]:
     """The engine at ``DedupConfig(shingle=4)`` on a seeded 64 MB segment
-    with cuts, a counted main-path run: one launch each of the SHA-1
-    kernel, the general-k stages 1-3 and the stage-4 kernel, and no plain
-    twin; digests equal hashlib and signatures the plain twins'.
+    with cuts, a counted main-path run: one launch of the SHA-1 kernel
+    and one of the general-width sketch kernel (stage 4 fused), and no
+    plain twin; digests equal hashlib and signatures the plain twins'.
     Returns the run's launches by wrapper."""
     rng = np.random.default_rng(SEED + 12)
     data = rng.integers(0, 256, SEGMENT, dtype=np.uint8).tobytes()
@@ -1104,8 +1166,7 @@ def check_engine_shingle(dev, card: str) -> dict[str, int]:
     engine = DedupEngine(DedupConfig(shingle=4), device=dev)
     (spans, digests, sigs), launches = counted(
         lambda: engine.fingerprint(data, cuts=cuts))
-    want = {"sha1_ragged_cuda": 1, "survivor_ragged_cuda": 1,
-            "signature_tiles_cuda": 1}
+    want = {"sha1_ragged_cuda": 1, "sketch_ragged_cuda": 1}
     check(launches == want, f"engine at shingle 4 launched {launches}")
     check(spans == spans_of(cuts), "engine at shingle 4: spans != cuts")
     raw = sha1.digest_bytes(digests)
@@ -1583,21 +1644,27 @@ def check_ingest_step(dev, card: str, total: dict, rec_block, rec_index,
           f"runs the body: each row is hashed sp x tp = "
           f"{sp * mesh8.shape['tp']} times on the 8-rank mesh)")
 
-    # The same steps at shingle 4: stages 1-3 on the general kernel on
-    # every rank (the 1-rank step too: the fused kernel is k = 5 only).
+    # The same steps at shingle 4, on the general-width kernel: the
+    # 1-rank step holds all 64 permutations and takes its fused form; the
+    # 8-rank step's tp = 2 ranks take its z form, then stage 4 on their
+    # slices of the permutations.
     step48 = make_ingest_step(mesh8, shingle=4)
     step41 = make_ingest_step(mesh1, shingle=4)
     (_, dig48, sig48, _), n48 = counted(lambda: step48(*in8))
     (_, _, sig41, _), n41 = counted(lambda: step41(*in1))
+    general = {"survivor_segmin_cuda": "survivor_k",
+               "minhash_batch_cuda": "sketch_k"}
     for launches in (n48, n41):
         for name, k in launches.items():
-            key = "survivor_k" if name == "survivor_segmin_cuda" else name
+            key = general.get(name, name)
             total[key] = total.get(key, 0) + k
-    for launches, r in ((n48, RANKS), (n41, 1)):
-        check(launches == {"sha1_batch_cuda": r, "survivor_segmin_cuda": r,
-                           "signature_tiles_cuda": r,
-                           "block_candidates_cuda": r, "index_best_cuda": r},
-              f"{r}-rank step at shingle 4 launched {launches}")
+    check(n48 == {"sha1_batch_cuda": RANKS, "survivor_segmin_cuda": RANKS,
+                  "signature_tiles_cuda": RANKS,
+                  "block_candidates_cuda": RANKS, "index_best_cuda": RANKS},
+          f"8-rank step at shingle 4 launched {n48}")
+    check(n41 == {"sha1_batch_cuda": 1, "minhash_batch_cuda": 1,
+                  "block_candidates_cuda": 1, "index_best_cuda": 1},
+          f"1-rank step at shingle 4 launched {n41}")
     plain4 = minhash.sketch_ragged(d_seg, d_off, d_len, 64, 4,
                                    row_tile=PLAIN_ROW_TILE)
     check(np.array_equal(i64(sig48)[:n_real], i64(plain4))
@@ -1870,10 +1937,10 @@ def check_fan_outs(dev, card: str, seg: bytes, cuts: list[int],
 
 def phase_parallel(dev, card: str, seg: bytes, cuts: list[int], rec_block,
                    rec_index, rec_sig
-                   ) -> tuple[int, int, int, int, int, int]:
+                   ) -> tuple[int, int, int, int, int, int, int]:
     """Phase 8; returns the SHA-1, sketch (k = 5), dense gear, index,
-    stage-4 and general-k launches of its main-path runs (each counted
-    from 0 just before it)."""
+    stage-4 and general-width (fused, then z alone) launches of its
+    main-path runs (each counted from 0 just before it)."""
     print(f"phase 8: parallel/, the engine's fan-out and the entry on the "
           f"card; every virtual rank sits on {dev}, so no time below says "
           f"anything about scaling across cards")
@@ -1886,7 +1953,8 @@ def phase_parallel(dev, card: str, seg: bytes, cuts: list[int], rec_block,
             sum(total.get(f.__name__, 0) for f in SKETCH_WRAPPERS),
             total.get("block_candidates_cuda", 0),
             total.get("index_best_cuda", 0),
-            total.get("signature_tiles_cuda", 0), total.get("survivor_k", 0))
+            total.get("signature_tiles_cuda", 0), total.get("sketch_k", 0),
+            total.get("survivor_k", 0))
 
 
 # Phase 9: the live system.
@@ -2528,14 +2596,17 @@ def main() -> int:
     rec_sig = KernelRecord("minhash_sig",
                            "fastdfs_tpu_torch/csrc/minhash_sig.cu",
                            "fastdfs_tpu/ops/minhash.py:127", xla=True)
+    rec_sketch_k = KernelRecord("sketch_k",
+                                "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
+                                "fastdfs_tpu/ops/minhash.py:98", xla=True)
     rec_shingle = KernelRecord("survivor_k",
                                "fastdfs_tpu_torch/csrc/minhash_survivor.cu",
                                "fastdfs_tpu/ops/minhash.py:98", xla=True)
     records = (rec_sha1, rec_sketch, rec_gear, rec_block, rec_index, rec_gf,
-               rec_sig, rec_shingle)
+               rec_sig, rec_sketch_k, rec_shingle)
     marks = [time.monotonic()]
     seg, cuts = phase_kernels(dev, rec_sha1, rec_sketch, rec_gear,
-                              rec_shingle)
+                              rec_sketch_k, rec_shingle)
     marks.append(time.monotonic())
     (rec_sha1.launches, rec_sketch.launches,
      rec_gear.launches) = phase_socket(dev, card)
@@ -2543,8 +2614,7 @@ def main() -> int:
     phase_profile(dev)
     shingle_n = check_engine_shingle(dev, card)
     rec_sha1.launches += shingle_n["sha1_ragged_cuda"]
-    rec_shingle.launches += shingle_n["survivor_ragged_cuda"]
-    rec_sig.launches += shingle_n["signature_tiles_cuda"]
+    rec_sketch_k.launches += shingle_n["sketch_ragged_cuda"]
     marks.append(time.monotonic())
     sha1_n, gear_n = phase_client(dev, card)
     rec_sha1.launches += sha1_n
@@ -2555,11 +2625,12 @@ def main() -> int:
     rec_gf.launches = phase_rs(dev, card, rec_gf)
     marks.append(time.monotonic())
     (sha1_n, sketch_n, rec_block.launches, rec_index.launches, sig_n,
-     shingle_n) = phase_parallel(dev, card, seg, cuts, rec_block, rec_index,
-                                 rec_sig)
+     sketch_k_n, shingle_n) = phase_parallel(dev, card, seg, cuts, rec_block,
+                                             rec_index, rec_sig)
     rec_sha1.launches += sha1_n
     rec_sketch.launches += sketch_n
     rec_sig.launches += sig_n
+    rec_sketch_k.launches += sketch_k_n
     rec_shingle.launches += shingle_n
     marks.append(time.monotonic())
     storaged, trackerd, native_s = native.native_binaries()

@@ -35,7 +35,7 @@ import torch
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex, MinHashLSHIndex
 from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, bucket_lens, chunk_table,
                                    gear_cdc, pack_chunk_table, resolve_device)
-from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
+from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS,
                                                 signature_tiles_cuda,
                                                 sketch_ragged_cuda,
                                                 survivor_ragged_cuda)
@@ -56,8 +56,8 @@ class DedupConfig:
     lsh_bands: int = 16
     near_dup_threshold: float = 0.5
     near_dup_top_k: int = 5
-    # Rows per tile of the plain twins (CPU path and the shingle != 5
-    # sketch's stages 1-3); the CUDA kernels take a segment whole.
+    # Rows per tile of the plain twins (the CPU path); the CUDA kernels
+    # take a segment whole.
     row_tile: int = 256
     # Accepted for field parity with the JAX package's DedupConfig and
     # otherwise ignored: the port routes by device (hand kernels on CUDA,
@@ -163,14 +163,11 @@ class DedupEngine:
         self.devices = self._fan_devices(devices)
         self.exact = ExactDigestIndex()
         self.near = MinHashLSHIndex(self.config.num_perms, self.config.lsh_bands)
-        # The fused sketch kernel is specialized to k = 5 and 64
-        # permutations.  Another permutation count or shingle width runs
-        # stages 1-3 in one launch of survivor_ragged_cuda (the fused
-        # kernel's z at k = 5, the general kernel at any other k) and
-        # stage 4 in the stage-4 kernel.
+        # The fused sketch kernels sign with 64 permutations, at any
+        # shingle width.  Another permutation count runs stages 1-3 in one
+        # launch of survivor_ragged_cuda and stage 4 in the stage-4 kernel.
         cfg = self.config
-        self._fused = (cfg.shingle == KERNEL_SHINGLE
-                       and cfg.num_perms == KERNEL_PERMS)
+        self._fused = cfg.num_perms == KERNEL_PERMS
         self._consts = {dev: perm_words(cfg.num_perms, dev)
                         for dev in set(self.devices)}
         self._staging = threading.local()
@@ -258,7 +255,7 @@ class DedupEngine:
                          cfg.row_tile)
         if self._fused:
             sketch_ragged_cuda(seg, d_off, d_len, consts, d_order,
-                               out[:, 5:], cfg.row_tile)
+                               out[:, 5:], cfg.row_tile, k=cfg.shingle)
         else:
             z = survivor_ragged_cuda(seg, d_off, d_len, cfg.shingle,
                                      cfg.row_tile, d_order)

@@ -52,9 +52,11 @@ _SIGNATURES = {
     # z, z_stride, n, words, p, sig, sig_stride, stream
     "fdfs_minhash_sig": [_VP, ctypes.c_longlong, ctypes.c_int, _VP,
                          ctypes.c_int, _VP, ctypes.c_longlong, _VP],
-    # seg, offsets, lens, order, n, k, poly_bk, z, stream
-    "fdfs_survivor_ragged_k": [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_uint, _VP, _VP],
+    # seg, offsets, lens, order, perms, n, k, poly_bk, sig, sig_stride, z,
+    # stream
+    "fdfs_sketch_ragged_k": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_uint, _VP,
+                             ctypes.c_longlong, _VP, _VP],
 }
 
 

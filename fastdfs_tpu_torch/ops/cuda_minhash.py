@@ -1,4 +1,4 @@
-"""MinHash sketch of ragged chunks: the CUDA kernel ``csrc/minhash_survivor.cu``.
+"""MinHash sketch of ragged chunks: the kernels of ``csrc/minhash_survivor.cu``.
 
 Replaces ``fastdfs_tpu/ops/pallas_minhash.py:survivor_segmin_pallas``
 (the Pallas kernel ``_survivor_kernel``, called at pallas_minhash.py:121)
@@ -6,38 +6,40 @@ together with the stage 4 that the reference runs after it in XLA: one
 block per chunk computes the shingle hashes, the value-keyed survivors,
 the segment minima and the 64 permutation minima, reading each byte once
 and writing only the ``(N, 64)`` signatures (and ``z`` when asked for).
+The file holds two such kernels: ``sketch_ragged_kernel`` at shingle
+width 5 (the Pallas kernel's width) and ``sketch_k_kernel`` at any other
+width ``k >= 1``, where the reference runs its XLA ``survivor_segmin``
+(``fastdfs_tpu/ops/minhash.py:98``) and then its XLA stage 4; the
+wrappers take ``k`` and choose.
 
 - ``sketch_ragged_cuda``: one launch over every chunk of a segment where
-  it lies; the engine's path.
-- ``survivor_ragged_cuda``: stages 1-3 (``z``) at any shingle width
-  ``k``: at k = 5 the same launch, read back through its ``z`` output (the
-  engine's path for a permutation count other than 64); at any other
-  ``k`` one launch of the same file's general kernel
-  (``survivor_k_kernel``), which replaces the reference's XLA
-  ``survivor_segmin`` at those widths (``fastdfs_tpu/ops/minhash.py:98``;
-  the Pallas kernel is k = 5 only).
+  it lies, stage 4 fused, at any ``k``; the engine's path at 64
+  permutations.
+- ``survivor_ragged_cuda``: stages 1-3 (``z``) at any ``k``: at k = 5 the
+  k = 5 kernel read back through its ``z`` output, at any other ``k`` the
+  general kernel's ``z`` form (no stage 4); the engine's path at another
+  permutation count.
 - ``minhash_batch_cuda`` and ``survivor_segmin_cuda``: the padded
   ``(N, L)`` entries, thin adapters over the same kernels with
-  ``offsets = i * L`` (the second asks for ``z``, at any ``k``).
+  ``offsets = i * L``.
 - ``signature_tiles_cuda``: stage 4 alone, over survivor vectors ``z``
   and the permutation words of any count or of a tensor-parallel rank's
   slice, on the kernel ``csrc/minhash_sig.cu`` (a warp a row on
   persistent blocks, the survivors compacted into the warp's slice of
   shared memory).  It replaces the reference's
   XLA stage 4 (``fastdfs_tpu/ops/minhash.py:minhash_signature``, and the
-  ingest step's ``vmap(one_sig)``) wherever the fused kernel's 64
-  permutations or its k = 5 do not apply: the ingest step's ``tp > 1``
-  ranks, the fingerprint step and the engine at another count or
-  shingle width.  Bound: 4 KiB read a
-  row, against two instructions per survivor and permutation.
+  ingest step's ``vmap(one_sig)``) wherever the fused kernels' 64
+  permutations do not apply: the ingest step's ``tp > 1`` ranks and the
+  engine and the steps at another count.  Bound: 4 KiB read a row,
+  against two instructions per survivor and permutation.
 
-The fused kernel is specialised to k = 5 and 64 permutations.  Bound on
-an H100: about 6 integer instructions per byte position against one byte
-read, so operations and HBM bytes bound it about equally (PERF.md gives
-the measured time beside it).  On a CPU tensor a wrapper returns its
-plain twin (``ops.minhash.sketch_ragged``, ``minhash_batch``,
-``survivor_segmin``, ``signature_tiles``); on a CUDA tensor it launches
-the kernel or raises.
+The fused kernels sign with 64 permutations.  Bound on an H100: about 6
+integer instructions per byte position, at any ``k``, against one byte
+read, so operations and HBM bytes bound them about equally (PERF.md
+gives the measured times beside it).  On a CPU tensor a wrapper returns
+its plain twin (``ops.minhash.sketch_ragged``, ``minhash_batch``,
+``survivor_ragged``, ``survivor_segmin``, ``signature_tiles``); on a
+CUDA tensor it launches a kernel or raises.
 """
 
 from __future__ import annotations
@@ -53,35 +55,56 @@ from fastdfs_tpu_torch.ops.minhash import (_POLY_B, DEFAULT_PERMS,
                                            survivor_segmin)
 
 KERNEL_PERMS = 64
-KERNEL_SHINGLE = 5
+KERNEL_SHINGLE = 5   # sketch_ragged_kernel's; sketch_k_kernel takes the rest
 
 
-def _launch(seg, offsets, lens, order, words, sig, z) -> None:
+def _check_k(k: int) -> None:
+    if k < 1:
+        raise ValueError(f"shingle width k must be at least 1, got {k}")
+
+
+def _launch(seg, offsets, lens, order, words, sig, z, k: int) -> None:
+    """One launch over every chunk: the k = 5 kernel at k = 5, the general
+    kernel at any other ``k``.  ``sig`` (with ``words``) and ``z`` are
+    int32 outputs; the general kernel takes either alone."""
     n = offsets.shape[0]
     if not n:
         return
-    if words.dtype != torch.int32 or words.shape != (2, KERNEL_PERMS) \
-            or words.device != seg.device or not words.is_contiguous():
+    if words is not None and (
+            words.dtype != torch.int32 or words.shape != (2, KERNEL_PERMS)
+            or words.device != seg.device or not words.is_contiguous()):
         raise ValueError(f"perm words must be contiguous int32 "
                          f"(2, {KERNEL_PERMS}) on {seg.device}")
+    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(seg.device):
         stream = torch.cuda.current_stream(seg.device).cuda_stream
-        rc = _build.library().fdfs_sketch_ragged(
-            seg.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
-            None if order is None else order.data_ptr(), words.data_ptr(), n,
-            sig.data_ptr(), sig.stride(0),
-            None if z is None else z.data_ptr(), stream)
-    _build.check_launch(rc, "sketch_ragged")
+        if k == KERNEL_SHINGLE:
+            rc = _build.library().fdfs_sketch_ragged(
+                seg.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
+                ptr(order), words.data_ptr(), n, sig.data_ptr(),
+                sig.stride(0), ptr(z), stream)
+        else:
+            rc = _build.library().fdfs_sketch_ragged_k(
+                seg.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
+                ptr(order), ptr(words), n, k, pow(int(_POLY_B), k, 1 << 32),
+                ptr(sig), 0 if sig is None else sig.stride(0), ptr(z),
+                stream)
+    _build.check_launch(rc, "sketch_ragged" if k == KERNEL_SHINGLE
+                        else "sketch_ragged_k")
 
 
 def sketch_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
                        lens: torch.Tensor, words: torch.Tensor | None = None,
                        order: torch.Tensor | None = None,
-                       out: torch.Tensor | None = None, row_tile: int = 256
-                       ) -> torch.Tensor:
+                       out: torch.Tensor | None = None, row_tile: int = 256,
+                       k: int = DEFAULT_SHINGLE, with_z: bool = False):
     """uint8 ``(S,)`` segment + int64 offsets, int32 lengths and an
-    optional int32 order ``(N,)`` -> uint32 ``(N, 64)`` signatures
-    (k = 5), bit-identical to ``ops.minhash.sketch_ragged``.
+    optional int32 order ``(N,)`` -> uint32 ``(N, 64)`` signatures at
+    shingle width ``k``, bit-identical to ``ops.minhash.sketch_ragged``:
+    one launch, the k = 5 kernel at k = 5 and the general kernel at any
+    other ``k``, stage 4 fused in both.  With ``with_z``, ``(sig, z)``:
+    the same launch also writes the uint32 ``(N, NUM_SEGMENTS)`` survivor
+    vectors.
 
     ``words`` is ``ops.minhash.perm_words(64, device)``, built here if
     absent (a caller that signs many segments builds it once).  ``out``,
@@ -94,15 +117,23 @@ def sketch_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
         out = torch.empty((n, KERNEL_PERMS), dtype=torch.int32,
                           device=seg.device)
     check_out(out, n, KERNEL_PERMS, seg.device)
+    _check_k(k)
     if words is None:
         words = perm_words(KERNEL_PERMS, seg.device)
+    z = None
     if seg.device.type == "cpu":
-        sig = sketch_ragged(seg, offsets, lens, KERNEL_PERMS, KERNEL_SHINGLE,
-                            perms_from_words(words), row_tile)
+        sig, z = sketch_ragged(seg, offsets, lens, KERNEL_PERMS, k,
+                               perms_from_words(words), row_tile, with_z=True)
         out.copy_(sig.view(torch.int32))
-    elif n:
-        _launch(seg, offsets, lens, order, words, out, None)
-        sketch_ragged_cuda.launches += 1
+    else:
+        if with_z:
+            z = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32,
+                            device=seg.device)
+        if n:
+            _launch(seg, offsets, lens, order, words, out, z, k)
+            sketch_ragged_cuda.launches += 1
+    if with_z:
+        return out.view(torch.uint32), z.view(torch.uint32)
     return out.view(torch.uint32)
 
 
@@ -111,25 +142,18 @@ sketch_ragged_cuda.launches = 0
 
 def _survivors(seg, offsets, lens, order, k: int) -> torch.Tensor:
     """One launch of stages 1-3 over ragged chunks on the card: int32
-    ``(N, NUM_SEGMENTS)`` ``z``, from the fused kernel at k = 5 and from
-    the general kernel at any other ``k``."""
-    if k < 1:
-        raise ValueError(f"shingle width k must be at least 1, got {k}")
+    ``(N, NUM_SEGMENTS)`` ``z``, read back through the k = 5 kernel's
+    ``z`` output at k = 5 (it signs as well), the general kernel's ``z``
+    form at any other ``k``."""
     n = offsets.shape[0]
     z = torch.empty((n, NUM_SEGMENTS), dtype=torch.int32, device=seg.device)
     if k == KERNEL_SHINGLE:
         sig = torch.empty((n, KERNEL_PERMS), dtype=torch.int32,
                           device=seg.device)
         _launch(seg, offsets, lens, order,
-                perm_words(KERNEL_PERMS, seg.device), sig, z)
-        return z
-    with torch.cuda.device(seg.device):
-        stream = torch.cuda.current_stream(seg.device).cuda_stream
-        rc = _build.library().fdfs_survivor_ragged_k(
-            seg.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
-            None if order is None else order.data_ptr(), n, k,
-            pow(int(_POLY_B), k, 1 << 32), z.data_ptr(), stream)
-    _build.check_launch(rc, "survivor_ragged_k")
+                perm_words(KERNEL_PERMS, seg.device), sig, z, k)
+    else:
+        _launch(seg, offsets, lens, order, None, None, z, k)
     return z
 
 
@@ -140,12 +164,12 @@ def survivor_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
     """Stages 1-3 over ragged chunks at shingle width ``k``: uint32 ``(N,
     NUM_SEGMENTS)``, bit-identical to ``ops.minhash.survivor_ragged`` (the
     same signature, plus the optional int32 longest-first ``order``).  One
-    launch: the fused kernel's ``z`` output at k = 5, the general kernel
-    at any other ``k``.  The engine's path wherever the fused kernel's 64
-    permutations or k = 5 do not apply; stage 4 then runs on
-    ``signature_tiles_cuda``.  ``row_tile`` only sizes the plain twin's
-    tiles on the CPU."""
+    launch: the k = 5 kernel's ``z`` output at k = 5, the general kernel's
+    ``z`` form at any other ``k``.  The engine's path at a permutation
+    count other than 64; stage 4 then runs on ``signature_tiles_cuda``.
+    ``row_tile`` only sizes the plain twin's tiles on the CPU."""
     check_ragged(seg, offsets, lens, order)
+    _check_k(k)
     if seg.device.type == "cpu":
         return survivor_ragged(seg, offsets, lens, k, row_tile)
     n = offsets.shape[0]
@@ -160,14 +184,14 @@ def survivor_ragged_cuda(seg: torch.Tensor, offsets: torch.Tensor,
 survivor_ragged_cuda.launches = 0
 
 
-def _padded_launch(data, lengths) -> torch.Tensor:
-    """The fused kernel over padded rows: int32 (N, 64) signatures."""
+def _padded_launch(data, lengths, k: int) -> torch.Tensor:
+    """The fused sketch over padded rows: int32 (N, 64) signatures."""
     n, L = data.shape
     dev = data.device
     sig = torch.empty((n, KERNEL_PERMS), dtype=torch.int32, device=dev)
     offsets = torch.arange(n, dtype=torch.int64, device=dev) * L
     _launch(data.reshape(-1), offsets, lengths.clamp(0, L), None,
-            perm_words(KERNEL_PERMS, dev), sig, None)
+            perm_words(KERNEL_PERMS, dev), sig, None, k)
     return sig
 
 
@@ -178,6 +202,7 @@ def survivor_segmin_cuda(data: torch.Tensor, lengths: torch.Tensor,
     shingle width ``k``, one launch of the kernels of
     ``survivor_ragged_cuda`` over the rows (``offsets = i * L``)."""
     check_batch(data, lengths)
+    _check_k(k)
     if data.device.type == "cpu":
         return survivor_segmin(data, lengths, k)
     n, L = data.shape
@@ -240,21 +265,26 @@ signature_tiles_cuda.launches = 0
 
 
 def minhash_batch_cuda(data: torch.Tensor, lengths: torch.Tensor,
-                       num_perms: int = DEFAULT_PERMS) -> torch.Tensor:
-    """Kernel-path twin of ``ops.minhash.minhash_batch`` (k = 5): uint8
-    ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, num_perms)``.  With 64
-    permutations the fused kernel signs the rows; with another count it
-    yields ``z`` and stage 4 runs on ``signature_tiles_cuda``."""
+                       num_perms: int = DEFAULT_PERMS,
+                       k: int = DEFAULT_SHINGLE) -> torch.Tensor:
+    """Kernel-path twin of ``ops.minhash.minhash_batch`` (and of the
+    reference's ``minhash_batch_pallas(data, lengths, num_perms, k)``):
+    uint8 ``(N, L)`` + int32 ``(N,)`` -> uint32 ``(N, num_perms)`` at
+    shingle width ``k``.  With 64 permutations one launch of the fused
+    sketch signs the rows (the k = 5 kernel or the general one); with
+    another count stages 1-3 yield ``z`` and stage 4 runs on
+    ``signature_tiles_cuda``."""
     check_batch(data, lengths)
+    _check_k(k)
     if data.device.type == "cpu":
-        return minhash_batch(data, lengths, num_perms, DEFAULT_SHINGLE)
+        return minhash_batch(data, lengths, num_perms, k)
     if num_perms != KERNEL_PERMS:
-        return signature_tiles_cuda(survivor_segmin_cuda(data, lengths),
+        return signature_tiles_cuda(survivor_segmin_cuda(data, lengths, k),
                                     perm_words(num_perms, data.device))
     sig = torch.empty((data.shape[0], KERNEL_PERMS), dtype=torch.int32,
                       device=data.device)
     if data.shape[0]:
-        sig = _padded_launch(data, lengths)
+        sig = _padded_launch(data, lengths, k)
         minhash_batch_cuda.launches += 1
     return sig.view(torch.uint32)
 

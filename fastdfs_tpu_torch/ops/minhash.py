@@ -12,10 +12,10 @@ outputs are bit-identical:
 4. **Permutation MinHash over survivors**: ``P`` universal hashes
    ``a_j * x + b_j`` min-reduced over the non-``EMPTY`` entries of ``z``.
 
-The CUDA sketch kernel (``cuda_minhash``) computes all four stages in
-one pass over ragged chunks at k = 5, and stages 1-3 alone at any other
-``k``; this module is its reference (``sketch_ragged``,
-``survivor_ragged``) and the path a CPU tensor takes.  Words are int64
+The CUDA sketch kernels (``cuda_minhash``) compute all four stages in
+one pass over ragged chunks at any ``k``, or stages 1-3 alone; this
+module is their reference (``sketch_ragged``, ``survivor_ragged``) and
+the path a CPU tensor takes.  Words are int64
 masked to 32 bits inside;
 public functions return uint32 tensors (see ``ops/__init__.py``).
 """

@@ -16,13 +16,14 @@ on its shard, inside one process, and the collectives of
    the SHA-1 kernel (``sha1_batch_cuda``) on its rows, then the digests
    are all-gathered along ``dp``.
 3. **MinHash, tensor-parallel (tp)**: each rank runs MinHash stages 1-3
-   through the sketch kernels (``survivor_segmin_cuda``: the fused
-   kernel's ``z`` at shingle 5, the general kernel at any other width)
-   and stage 4 for its ``P / tp`` permutations through the stage-4
-   kernel (``signature_tiles_cuda``, given the rank's columns of the
-   permutation words); signatures are all-gathered along ``tp``, then
-   along ``dp``.  With ``tp == 1``, 64 permutations and shingle 5 the
-   fused kernel (``minhash_batch_cuda``) signs the rows whole.
+   through the sketch kernels (``survivor_segmin_cuda``: the k = 5
+   kernel's ``z`` at shingle 5, the general kernel's ``z`` form at any
+   other width) and stage 4 for its ``P / tp`` permutations through the
+   stage-4 kernel (``signature_tiles_cuda``, given the rank's columns of
+   the permutation words); signatures are all-gathered along ``tp``, then
+   along ``dp``.  With ``tp == 1`` and 64 permutations one launch of the
+   fused sketch (``minhash_batch_cuda``) signs the rows whole, at any
+   shingle width.
 4. **Index query (dp + pmax)**: the signature index is row-sharded over
    ``dp``; each rank scores the gathered signatures against its shard
    through the index kernel (``index_best_cuda``) and the best
@@ -50,7 +51,7 @@ import torch
 from fastdfs_tpu_torch.ops.cuda_gear import block_candidates_cuda
 from fastdfs_tpu_torch.ops.cuda_index import (  # noqa: F401 (re-export)
     index_best, index_best_cuda)
-from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS, KERNEL_SHINGLE,
+from fastdfs_tpu_torch.ops.cuda_minhash import (KERNEL_PERMS,
                                                 minhash_batch_cuda,
                                                 signature_tiles_cuda,
                                                 survivor_segmin_cuda)
@@ -130,12 +131,13 @@ def _rank_perms(mesh: Mesh, num_perms: int, tp: int) -> list:
 
 def _sign_rows(rows: torch.Tensor, lens: torch.Tensor, shingle: int,
                words) -> torch.Tensor:
-    """int32 bits of the MinHash signatures of padded rows: the fused
-    kernel when ``words`` is None (all 64 permutations, k = 5), else
-    kernel stages 1-3 at width ``shingle`` and the stage-4 kernel over
-    the permutation ``words``."""
+    """int32 bits of the MinHash signatures of padded rows at width
+    ``shingle``: the fused sketch when ``words`` is None (all 64
+    permutations), else kernel stages 1-3 and the stage-4 kernel over the
+    permutation ``words``."""
     if words is None:
-        return minhash_batch_cuda(rows, lens).view(torch.int32)
+        return minhash_batch_cuda(rows, lens, KERNEL_PERMS,
+                                  shingle).view(torch.int32)
     z = survivor_segmin_cuda(rows, lens, shingle)
     return signature_tiles_cuda(z, words).view(torch.int32)
 
@@ -168,8 +170,7 @@ class IngestStep:
         self.num_perms = num_perms
         self.avg_bits = avg_bits
         self.shingle = shingle
-        fused = (tp == 1 and num_perms == KERNEL_PERMS
-                 and shingle == KERNEL_SHINGLE)
+        fused = tp == 1 and num_perms == KERNEL_PERMS
         self._perms = ([None] * mesh.size if fused
                        else _rank_perms(mesh, num_perms, tp))
 
@@ -265,13 +266,13 @@ def make_fingerprint_step(mesh: Mesh, num_perms: int = 64,
     (digests (N, 5) uint32, sigs (N, num_perms) uint32)`` on rank 0's
     device, in row order.  ``N`` must divide by the mesh's size.  Each
     rank runs the SHA-1 kernel and the sketch kernel (fused with stage 4
-    for 64 permutations and k = 5, else followed by the stage-4 kernel)
+    for 64 permutations, else followed by the stage-4 kernel)
     on its rows: no collectives, one launch of each kernel per rank.
     """
     if mesh.axis_names != ("dp",):
         raise ValueError(f"a fingerprint mesh has the one axis dp, not "
                          f"{mesh.axis_names}")
-    fused = num_perms == KERNEL_PERMS and shingle == KERNEL_SHINGLE
+    fused = num_perms == KERNEL_PERMS
     perms = ([None] * mesh.size if fused
              else _rank_perms(mesh, num_perms, 1))
     dev = mesh.device(0)

@@ -16,6 +16,17 @@ or those ``--only`` names):
   after zero halos, as the 1-rank ingest step calls it;
 - ``sketch``: ``sketch_ragged_cuda`` (the fused k = 5 kernel) on a
   seeded 64 MB segment cut by ``chunk_stream_np``, as the engine calls it;
+- ``sketch_k4`` and ``sketch_k8``: ``sketch_ragged_cuda(..., k=4)`` and
+  ``k=8`` (the general kernel, stage 4 fused) on the same segment, as the
+  engine calls it at ``DedupConfig(shingle=4)`` or ``8``;
+- ``sketch_k5``: the general kernel at k = 5 on the same segment, through
+  its C entry ``fdfs_sketch_ragged_k`` (the wrappers send k = 5 to the
+  k = 5 kernel): the same signatures as ``sketch``;
+- ``survivor_k4``: ``survivor_ragged_cuda`` at k = 4 (stages 1-3 alone,
+  ``z``) on the same segment;
+- ``two_launch_k4``: ``survivor_ragged_cuda`` at k = 4, then
+  ``signature_tiles_cuda`` at 64 permutations on its ``z``: the engine's
+  path at shingle 4 before the general kernel signed;
 - ``gf_rebuild`` and ``gf_encode``: ``gf_matmul_cuda`` at RS(32,8) over
   seeded 2 MiB shards (a 64 MB stripe), the rebuild's 32 x 32 decode
   matrix of the last 32 of 40 shards and the 8 x 32 parity matrix;
@@ -29,11 +40,14 @@ Each has ``ms``, the CUDA-event median of 20 calls of the wrapper, and
 that a call puts on the card (kernels, memsets), without the host's
 time in the wrapper (null where the profiler, in 5 runs, never showed
 half the calls' kernels).  ``check`` (a count or a sum of the output)
-tells that the checkouts computed the same function.
+tells that the checkouts computed the same function.  A case whose
+wrapper a checkout lacks (``sketch_ragged_cuda`` without ``k``) is null
+there.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -46,9 +60,17 @@ TRIES = 5
 SEED = 20261017
 STAGE4_ROWS = 3234
 STAGE4_SURVIVOR_SHARE = 39 / 1024
-CASES = ("compact", "dense", "sketch", "gf_rebuild", "gf_encode", "stage4")
+CASES = ("compact", "dense", "sketch", "sketch_k4", "sketch_k8",
+         "sketch_k5", "survivor_k4", "two_launch_k4", "gf_rebuild",
+         "gf_encode", "stage4")
+# A device kernel each case must show (a name the parent's kernels share
+# where the case is the parent's too).
 KERNEL_NAMES = {"compact": "gear_", "dense": "gear_",
                 "sketch": "sketch_ragged_kernel",
+                "sketch_k4": "sketch_k_kernel", "sketch_k8": "sketch_k_kernel",
+                "sketch_k5": "sketch_k_kernel",
+                "survivor_k4": "_k_kernel",
+                "two_launch_k4": "minhash_sig_kernel",
                 "gf_rebuild": "gf_matmul_kernel",
                 "gf_encode": "gf_matmul_kernel",
                 "stage4": "minhash_sig_kernel"}
@@ -79,9 +101,48 @@ def _device_ms(torch, fn, kernel: str) -> float | None:
     return None
 
 
+@functools.lru_cache(maxsize=1)
+def _segment(np, torch, dev):
+    """The seeded 64 MB segment with its zero slack, cut by
+    ``chunk_stream_np``, and its chunk table on the card (made once a
+    process)."""
+    from fastdfs_tpu_torch.ops import SEGMENT_SLACK
+    from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_np
+    data = np.random.default_rng(SEED).integers(0, 256, SEGMENT,
+                                                dtype=np.uint8)
+    ends = np.asarray(chunk_stream_np(data.tobytes()), np.int64)
+    lens = np.diff(ends, prepend=0).astype(np.int32)
+    seg = torch.from_numpy(np.concatenate(
+        [data, np.zeros(SEGMENT_SLACK, np.uint8)])).to(dev)
+    order = np.argsort(-lens, kind="stable").astype(np.int32)
+    return (seg, torch.from_numpy(ends - lens).to(dev),
+            torch.from_numpy(lens).to(dev), torch.from_numpy(order).to(dev))
+
+
+def _general_at_5(torch, seg, off, ln, order):
+    """The general-width kernel at k = 5, launched through its C entry
+    (the wrappers send k = 5 to the k = 5 kernel)."""
+    from fastdfs_tpu_torch.ops import _build
+    from fastdfs_tpu_torch.ops.minhash import perm_words
+    words = perm_words(64, seg.device)
+    n = off.shape[0]
+
+    def call():
+        sig = torch.empty((n, 64), dtype=torch.int32, device=seg.device)
+        rc = _build.library().fdfs_sketch_ragged_k(
+            seg.data_ptr(), off.data_ptr(), ln.data_ptr(), order.data_ptr(),
+            words.data_ptr(), n, 5, pow(0x01000193, 5, 1 << 32),
+            sig.data_ptr(), 64, None,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(rc, "sketch_ragged_k")
+        return sig
+    return call
+
+
 def _inputs(np, torch, dev, name: str):
     """``(fn, check)``: one call of the case's wrapper and a function of
-    its output that two checkouts must agree on."""
+    its output that two checkouts must agree on; None where the
+    checkout's wrapper cannot make the call."""
     rng = np.random.default_rng(SEED)
     if name in ("compact", "dense"):
         from fastdfs_tpu_torch.ops.cuda_gear import (HALO,
@@ -98,21 +159,35 @@ def _inputs(np, torch, dev, name: str):
         zeros = torch.zeros((2, HALO), dtype=torch.int64, device=dev)
         return (lambda: block_candidates_cuda(rows, zeros, AVG_BITS),
                 lambda out: int(out.sum()))
-    if name == "sketch":
-        from fastdfs_tpu_torch.ops import SEGMENT_SLACK
-        from fastdfs_tpu_torch.ops.cuda_minhash import sketch_ragged_cuda
-        from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_np
-        data = rng.integers(0, 256, SEGMENT, dtype=np.uint8)
-        ends = np.asarray(chunk_stream_np(data.tobytes()), np.int64)
-        lens = np.diff(ends, prepend=0).astype(np.int32)
-        seg = torch.from_numpy(np.concatenate(
-            [data, np.zeros(SEGMENT_SLACK, np.uint8)])).to(dev)
-        off = torch.from_numpy(ends - lens).to(dev)
-        ln = torch.from_numpy(lens).to(dev)
-        order = torch.from_numpy(np.argsort(-lens, kind="stable")
-                                 .astype(np.int32)).to(dev)
-        return (lambda: sketch_ragged_cuda(seg, off, ln, None, order),
-                lambda out: int(out.view(torch.int32).to(torch.int64).sum()))
+    if name == "sketch" or name[:-1] in ("sketch_k", "survivor_k",
+                                         "two_launch_k"):
+        import inspect
+
+        from fastdfs_tpu_torch.ops.cuda_minhash import (signature_tiles_cuda,
+                                                        sketch_ragged_cuda,
+                                                        survivor_ragged_cuda)
+        from fastdfs_tpu_torch.ops.minhash import perm_words
+        seg, off, ln, order = _segment(np, torch, dev)
+        total = (lambda out: int(out.view(torch.int32).to(torch.int64)
+                                 .sum()))
+        if name == "sketch":
+            return (lambda: sketch_ragged_cuda(seg, off, ln, None, order),
+                    total)
+        k = int(name[-1])
+        if name.startswith("survivor"):
+            return (lambda: survivor_ragged_cuda(seg, off, ln, k,
+                                                 order=order), total)
+        if name.startswith("two_launch"):
+            words = perm_words(64, dev)
+            return (lambda: signature_tiles_cuda(
+                survivor_ragged_cuda(seg, off, ln, k, order=order), words),
+                total)
+        if "k" not in inspect.signature(sketch_ragged_cuda).parameters:
+            return None
+        if k == 5:
+            return _general_at_5(torch, seg, off, ln, order), total
+        return (lambda: sketch_ragged_cuda(seg, off, ln, None, order, k=k),
+                total)
     if name.startswith("gf_"):
         from fastdfs_tpu_torch.ops import rs_code
         from fastdfs_tpu_torch.ops.cuda_gf import gf_matmul_cuda
@@ -145,7 +220,11 @@ def time_one(root: str, names: list[str]) -> dict:
     dev = torch.device("cuda")
     out = {"root": root}
     for name in names:
-        fn, check = _inputs(np, torch, dev, name)
+        case = _inputs(np, torch, dev, name)
+        if case is None:
+            out[name] = None
+            continue
+        fn, check = case
         out[name] = {"ms": median_ms(fn, CALLS),
                      "device_ms": _device_ms(torch, fn, KERNEL_NAMES[name]),
                      "check": check(fn())}

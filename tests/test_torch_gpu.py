@@ -768,10 +768,10 @@ def test_ingest_and_fingerprint_steps_at_other_counts(cuda_device, perms):
     assert np.array_equal(_u32(sigs), plain)
 
 
-# Stages 1-3 at any shingle width (csrc/minhash_survivor.cu's general
-# kernel), the GF(2^8) kernel at the field's row and shard counts, and the
-# stage-4 kernel over more rows than its persistent grid has warps and on
-# rows off a 16-byte boundary.
+# The sketch at any shingle width (csrc/minhash_survivor.cu's general
+# kernel, both forms), the GF(2^8) kernel at the field's row and shard
+# counts, and the stage-4 kernel over more rows than its persistent grid
+# has warps and on rows off a 16-byte boundary.
 
 SHINGLES = [1, 2, 3, 4, 6, 8, 13, 32]
 
@@ -802,6 +802,64 @@ def test_general_k_kernel_matches_plain_twin(cuda_device, k):
                        minhash.survivor_segmin(d, dl, k).view(torch.int32))
 
 
+def _check_fused_general(dev, seg, offsets, lens, k):
+    """The general kernel's fused form on one segment, with and without
+    the longest-first order: signatures alone, and signatures and z from
+    one launch, against the plain twin."""
+    d_seg, d_off, d_len, d_ord = _on_card(dev, seg, offsets, lens)
+    want_sig, want_z = minhash.sketch_ragged(d_seg[:len(seg)], d_off, d_len,
+                                             64, k, row_tile=4096,
+                                             with_z=True)
+    words = minhash.perm_words(64, dev)
+    before = sketch_ragged_cuda.launches
+    for order in (d_ord, None):
+        alone = sketch_ragged_cuda(d_seg, d_off, d_len, words, order, k=k)
+        sig, z = sketch_ragged_cuda(d_seg, d_off, d_len, None, order, k=k,
+                                    with_z=True)
+        for got, want in ((alone, want_sig), (sig, want_sig), (z, want_z)):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    torch.cuda.synchronize()
+    assert sketch_ragged_cuda.launches == before + 4
+    return want_z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", SHINGLES)
+def test_fused_general_kernel_matches_plain_twin(cuda_device, k):
+    # Lengths 0, 1, k - 1, k, k + 1 and a few hundred at every start
+    # offset mod 4 between non-zero bytes, and a chunk of three passes and
+    # a tail; then the padded entry at 64 permutations.
+    seg, offsets, lens = shingle_segment(np.random.default_rng(200 + k), k)
+    z = _check_fused_general(cuda_device, seg, offsets, lens, k)
+    assert (z.view(torch.int32) != -1).any()
+    rng = np.random.RandomState(200 + k)
+    data, ln = _batch(rng, 64, 2048, [0, 1, max(k - 1, 0), k, k + 1, 2048])
+    d = torch.from_numpy(data).to(cuda_device)
+    dl = torch.from_numpy(ln).to(cuda_device)
+    before = minhash_batch_cuda.launches
+    got = minhash_batch_cuda(d, dl, 64, k)
+    torch.cuda.synchronize()
+    assert minhash_batch_cuda.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       minhash.minhash_batch(d, dl, 64, k).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4090, 4111, 5000])
+def test_fused_general_kernel_past_the_leading_view(cuda_device, k):
+    # Windows wider than a pass's leading view: a run's first hash reads
+    # bytes from the trailing view and from the segment.
+    rng = np.random.default_rng(k)
+    lens = [0, 1, k - 1, k, k + 1, k + 4096 + 37, 3 * k]
+    seg, offsets = bytearray(), []
+    for i, n in enumerate(lens):
+        seg += rng.integers(1, 256, 1 + (i - len(seg) - 1) % 4,
+                            dtype=np.uint8).tobytes()
+        offsets.append(len(seg))
+        seg += rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    _check_fused_general(cuda_device, bytes(seg), offsets, lens, k)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [4, 8])
 def test_general_k_kernel_on_a_64mb_segment(cuda_device, k):
@@ -816,25 +874,33 @@ def test_general_k_kernel_on_a_64mb_segment(cuda_device, k):
                                    row_tile=4096)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert (got.view(torch.int32) != -1).sum() > 0
+    z = _check_fused_general(cuda_device, seg, offsets, lens, k)
+    assert torch.equal(z.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shingle,perms", [(4, 64), (8, 32)])
 def test_engine_at_other_shingles_on_card_matches_cpu(cuda_device, shingle,
                                                       perms):
+    # 64 permutations: one fused launch at any width; another count:
+    # stages 1-3, then the stage-4 kernel.
     rng = np.random.RandomState(shingle)
     data = rng.randint(0, 256, size=300_000, dtype=np.uint8).tobytes()
     cfg = DedupConfig(min_size=64, avg_bits=8, max_size=1024, row_tile=32,
                       num_perms=perms, shingle=shingle)
-    before = (survivor_ragged_cuda.launches, signature_tiles_cuda.launches)
+    wrappers = (sketch_ragged_cuda, survivor_ragged_cuda,
+                signature_tiles_cuda)
+    before = [f.launches for f in wrappers]
     calls = (minhash.survivor_ragged.cuda_calls,
-             minhash.survivor_segmin.cuda_calls)
+             minhash.survivor_segmin.cuda_calls,
+             minhash.signature_tiles.cuda_calls)
     got = DedupEngine(cfg, device=cuda_device).fingerprint(data)
     torch.cuda.synchronize()
-    assert (survivor_ragged_cuda.launches - before[0],
-            signature_tiles_cuda.launches - before[1]) == (1, 1)
+    launched = [f.launches - b for f, b in zip(wrappers, before)]
+    assert launched == ([1, 0, 0] if perms == 64 else [0, 1, 1])
     assert (minhash.survivor_ragged.cuda_calls,
-            minhash.survivor_segmin.cuda_calls) == calls
+            minhash.survivor_segmin.cuda_calls,
+            minhash.signature_tiles.cuda_calls) == calls
     ref = DedupEngine(cfg, device="cpu").fingerprint(data)
     assert got[0] == ref[0]
     assert np.array_equal(got[1], ref[1])
@@ -843,6 +909,8 @@ def test_engine_at_other_shingles_on_card_matches_cpu(cuda_device, shingle,
 
 @pytest.mark.gpu
 def test_ingest_step_at_shingle_4_on_card(cuda_device):
+    # One rank holds all 64 permutations: the fused launch.  The 8-rank
+    # mesh's tp = 2 ranks: stages 1-3, then stage 4 on their slices.
     rng = np.random.RandomState(4)
     streams = torch.from_numpy(
         rng.randint(0, 256, (2, 1 << 16), dtype=np.uint8)).to(cuda_device)
@@ -851,16 +919,24 @@ def test_ingest_step_at_shingle_4_on_card(cuda_device):
     ln = torch.from_numpy(lens).to(cuda_device)
     plain = _u32(minhash.minhash_batch(d, ln, 64, 4))
     index = plain[::3].copy()
-    for n in (1, 8):
+    wrappers = (minhash_batch_cuda, survivor_segmin_cuda,
+                signature_tiles_cuda)
+    for n, want in ((1, [1, 0, 0]), (8, [0, 8, 8])):
         mesh = make_mesh(n, devices=[cuda_device] * n)
-        before = (survivor_segmin_cuda.launches, signature_tiles_cuda.launches)
+        before = [f.launches for f in wrappers]
         _, _, sigs, best = make_ingest_step(mesh, shingle=4)(
             streams.view(2, mesh.shape["sp"], -1), d, ln, index)
         torch.cuda.synchronize()
-        assert (survivor_segmin_cuda.launches - before[0],
-                signature_tiles_cuda.launches - before[1]) == (n, n)
+        assert [f.launches - b for f, b in zip(wrappers, before)] == want
         assert np.array_equal(_u32(sigs), plain)
         assert (best[::3] == 1.0).all()
+    step = make_fingerprint_step(fingerprint_mesh(2, devices=[cuda_device] * 2),
+                                 shingle=4)
+    before = minhash_batch_cuda.launches
+    _, sigs = step(d, ln)
+    torch.cuda.synchronize()
+    assert minhash_batch_cuda.launches == before + 2
+    assert np.array_equal(_u32(sigs), plain)
 
 
 @pytest.mark.gpu

@@ -6,8 +6,12 @@ the kernel wrappers ``survivor_ragged_cuda`` and ``survivor_segmin_cuda``,
 which take their plain twins for CPU tensors) against the reference's XLA
 ``survivor_segmin`` at k = 1, 2, 3, 4, 6, 8, 13 and 32, on chunks of
 lengths 0, 1, k - 1, k, k + 1 and a few hundred bytes, each at a start
-offset of every residue mod 4 with non-zero bytes around it; the engine
-at ``shingle=8`` against the reference engine; the ingest step at
+offset of every residue mod 4 with non-zero bytes around it; the fused
+sketch wrappers (``sketch_ragged_cuda(..., k=k)``, with and without
+``order`` and ``z``, and ``minhash_batch_cuda(data, lens, 64, k)``) on
+the same chunks against the reference's ``minhash_batch(data, lens, 64,
+k)``; the engine at ``shingle=8`` (32 permutations too) and at
+``shingle=4`` against the reference engine; the ingest step at
 ``shingle=4`` against the reference's on a 1-rank mesh, and the port's
 8-rank mesh against the same.  The shapes are those the suites already
 compile (the reference's SHA-1 costs minutes of XLA compile per new
@@ -28,7 +32,9 @@ from fastdfs_tpu.parallel import distributed_ingest_step as jingest_step
 from fastdfs_tpu.parallel import make_mesh as jmake_mesh
 from fastdfs_tpu_torch.dedup import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.ops import minhash as tm
-from fastdfs_tpu_torch.ops.cuda_minhash import (survivor_ragged_cuda,
+from fastdfs_tpu_torch.ops.cuda_minhash import (minhash_batch_cuda,
+                                                sketch_ragged_cuda,
+                                                survivor_ragged_cuda,
                                                 survivor_segmin_cuda)
 from fastdfs_tpu_torch.parallel import make_ingest_step, make_mesh
 
@@ -99,6 +105,39 @@ def test_padded_stages_1_to_3_match_reference(k):
     assert tm.survivor_ragged.cuda_calls == tm.survivor_segmin.cuda_calls == 0
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_signatures(k: int) -> np.ndarray:
+    rows, lens, _, _, _ = _chunks(k)
+    return np.asarray(jm.minhash_batch(rows, lens, 64, k))
+
+
+@pytest.mark.parametrize("k", SHINGLES)
+def test_fused_sketch_matches_reference(k):
+    rows, lens, seg, offsets, z = _chunks(k)
+    want = _reference_signatures(k)
+    assert len(np.unique(want, axis=0)) > 1
+    t = (torch.from_numpy(np.frombuffer(seg, np.uint8).copy()),
+         torch.from_numpy(offsets), torch.from_numpy(lens))
+    order = torch.from_numpy(np.argsort(-lens, kind="stable")
+                             .astype(np.int32))
+    before = (sketch_ragged_cuda.launches, minhash_batch_cuda.launches)
+    assert np.array_equal(_u32(sketch_ragged_cuda(*t, k=k, row_tile=3)), want)
+    sig, got_z = sketch_ragged_cuda(*t, tm.perm_words(64, "cpu"), order,
+                                    k=k, with_z=True)
+    assert np.array_equal(_u32(sig), want) and np.array_equal(_u32(got_z), z)
+    out = torch.full((len(lens), 70), 7, dtype=torch.int32)
+    sketch_ragged_cuda(*t, None, None, out[:, 3:67], k=k)
+    assert np.array_equal(_u32(out[:, 3:67].contiguous()), want)
+    assert (out[:, :3] == 7).all() and (out[:, 67:] == 7).all()
+    batch = minhash_batch_cuda(torch.from_numpy(rows), torch.from_numpy(lens),
+                               64, k)
+    assert np.array_equal(_u32(batch), want)
+    assert (sketch_ragged_cuda.launches,
+            minhash_batch_cuda.launches) == before  # the CPU twins
+    with pytest.raises(ValueError):
+        sketch_ragged_cuda(*t, k=0)
+
+
 def test_engine_at_shingle_8_matches_reference():
     # test_torch_engine.py's stream and geometry: the reference's SHA-1
     # buckets are compiled there already.
@@ -144,3 +183,18 @@ def test_ingest_step_at_shingle_4_matches_reference(n):
     assert np.array_equal(best.numpy(), ref[3])
     assert np.array_equal(_u32(sigs), _u32(tm.minhash_batch(
         torch.from_numpy(chunks), torch.from_numpy(lens), 64, 4)))
+
+
+def test_engine_at_shingle_4_matches_reference():
+    # The shingle-8 test's stream and geometry, 64 permutations: the
+    # fused sketch at width 4 on the card, its plain twin here.
+    data = np.random.RandomState(1).randint(0, 256, size=20_000,
+                                            dtype=np.uint8).tobytes()
+    geo = dict(min_size=64, avg_bits=8, max_size=1024, row_tile=32)
+    engine = DedupEngine(DedupConfig(**geo, shingle=4), device="cpu")
+    assert engine._fused
+    ours = engine.fingerprint(data)
+    ref = JEngine(JConfig(**geo, shingle=4)).fingerprint(data)
+    assert ours[0] == ref[0]
+    assert np.array_equal(ours[1], ref[1])
+    assert np.array_equal(ours[2], ref[2])
