@@ -140,9 +140,22 @@ before the last line):
    synced files is counted, not assumed.  ``monitor.gather_top`` and
    ``cli --device cuda group status`` / ``health`` show both storages
    live.  Wall per 64 MB upload and the stitched timeline.
+11. The port's benchmarks.  ``python -m fastdfs_tpu_torch.bench`` and
+   ``--multichip`` at full size (8192 rows of 64 KiB a dispatch), each
+   in a process of its own: one stdout line, rc 0, ``ok``, a rate above
+   0 after at least ``MIN_ROUNDS`` rounds, the rows it checked equal to
+   hashlib and the plain twin, and one launch of each kernel a step (a
+   rank's step on the fan-out), as the bench counts them over its
+   rounds; its rate, dispersion, ``vs_baseline`` and each kernel's
+   device ms are printed.  Then ``bench_configs.config4`` here at scale
+   1/400 (4,096 documents): the kernel's signatures equal to the plain
+   twin's, every recall field present, recall@1 at the 0.98 target, one
+   sketch launch a dispatch; and ``config5``: its 17 steps of the
+   (2, 2, 2) mesh on the card, the artifact's shapes, each of the step's
+   five kernels once a rank a step.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-4, 5, 6, 7, 8, 9 and 10 (each counted from 0 just before its run; the
+4, 5, 6, 7, 8, 9, 10 and 11 (each counted from 0 just before its run; the
 general-width kernel's two forms from the runs at shingle 4); launches
 made only to time or compare a kernel are not counted.  Those runs must call no plain
 twin on a CUDA tensor (the ``cuda_calls`` of ``gear_window``,
@@ -179,6 +192,8 @@ import time
 import numpy as np
 import torch
 
+from fastdfs_tpu_torch import bench as bench_mod
+from fastdfs_tpu_torch import bench_configs
 from fastdfs_tpu_torch import cli as cli_mod
 from fastdfs_tpu_torch import monitor as monitor_mod
 from fastdfs_tpu_torch import sidecar as sidecar_mod
@@ -2558,6 +2573,145 @@ def drive_cluster(dev, card, data, paths, taddr, tracker, storages, bases,
             n["client gear"])
 
 
+# Phase 11: the port's benchmarks.
+
+C4_SCALE = 1 / 400                     # config 4 here: 4,096 documents, 256 MB
+# Config 5's 8-rank step at shingle 5 launches each of these once a rank.
+C5_WRAPPERS = ("sha1_batch_cuda", "survivor_segmin_cuda",
+               "signature_tiles_cuda", "block_candidates_cuda",
+               "index_best_cuda")
+
+
+def run_bench(*args: str) -> dict:
+    """``python -m fastdfs_tpu_torch.bench`` with ``args`` at full size in
+    a process of its own: its one stdout line, which must say ok."""
+    env = {k: v for k, v in os.environ.items() if k != "_FDFS_BENCH_SMOKE"}
+    proc = subprocess.run([sys.executable, "-m", "fastdfs_tpu_torch.bench",
+                           *args], cwd=REPO_ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"bench {list(args)}: rc {proc.returncode}, {len(lines)} stdout "
+          f"lines; stderr: {proc.stderr[-2000:]}")
+    out = json.loads(lines[0])
+    check(out.get("ok") is True and (out.get("value") or 0) > 0,
+          f"bench {list(args)}: {out.get('error')} {out.get('checked')}")
+    return out
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, k in launches.items():
+        total[name] = total.get(name, 0) + k
+
+
+def check_flagship(card: str, total: dict) -> None:
+    """The flagship leg: both kernels once a step, rows checked."""
+    out = run_bench()
+    check(out["metric"] == bench_mod.METRIC, f"flagship metric {out['metric']}")
+    check(out["rounds"] >= bench_mod.MIN_ROUNDS
+          and (out["measured_seconds"] >= bench_mod.MIN_SECONDS
+               or out["rounds"] == bench_mod.MAX_ROUNDS),
+          f"flagship rounds {out['rounds']} in {out['measured_seconds']} s")
+    check(out["warmup"]["in_measure"] is False, "warm-up inside the rounds")
+    checked = out["checked"]
+    check(checked["digests_equal"] and checked["sigs_equal"]
+          and checked["digest_rows"] > 0 and checked["sig_rows"] > 0,
+          f"flagship rows checked: {checked}")
+    steps = out["steps"]
+    check(steps == out["rounds"] * bench_mod.PIPELINE
+          and out["launches"] == {"sha1_batch_cuda": steps,
+                                  "minhash_batch_cuda": steps},
+          f"flagship launches {out['launches']} over {steps} steps")
+    add_launches(total, out["launches"])
+    dev_ms = out["kernel_device_ms"] or {}
+    print(f"  bench: {out['value']} GB/s ({out['rounds']} rounds of "
+          f"{bench_mod.PIPELINE} x {out['rows']} rows of {out['row_bytes']} "
+          f"B, {out['measured_seconds']} s), dispersion {out['dispersion']}, "
+          f"contended {out['contended']}, vs_baseline {out['vs_baseline']} "
+          f"(hashlib {out['cpu_baseline_GBps']} GB/s on one core); device "
+          f"ms a dispatch: SHA-1 {fmt_ms(dev_ms.get('sha1'))}, sketch "
+          f"{fmt_ms(dev_ms.get('sketch'))}, all {fmt_ms(dev_ms.get('all'))} "
+          f"(busy share {out.get('device_busy_share')}); a round's median "
+          f"ms split {out['round_split_ms']}; rows checked "
+          f"{checked['digest_rows']} digests, {checked['sig_rows']} "
+          f"signatures; launches {out['launches']}  [{out['card']}]")
+
+
+def check_multichip(card: str, total: dict) -> None:
+    """The fan-out leg: each rank launches both kernels once a step."""
+    out = run_bench("--multichip")
+    check(out["metric"] == bench_mod.METRIC_MULTICHIP,
+          f"multichip metric {out['metric']}")
+    for k, leg in out["legs"].items():
+        steps = leg["rounds"] * int(k)
+        check(leg["launches"] == {"sha1_batch_cuda": steps,
+                                  "minhash_batch_cuda": steps},
+              f"multichip leg {k}: launches {leg['launches']}")
+        add_launches(total, leg["launches"])
+    if out["n_devices"] == 1:
+        check(out["scaling_1_to_n"] == 1.0 and "note" in out,
+              f"one card, scaling {out['scaling_1_to_n']}")
+    print(f"  bench --multichip: {out['value']} GB/s aggregate, "
+          f"{out['per_chip_GBps']} per card, scaling 1 -> "
+          f"{out['n_devices']}: {out['scaling_1_to_n']}; legs "
+          f"{out['legs']}; {out.get('note', '')}  [{out['card']}]")
+
+
+def phase_benches(dev, card: str) -> dict[str, int]:
+    """Phase 11; returns the launches of its main-path runs by wrapper
+    (each counted from 0 just before it; the benches count their own
+    rounds in their processes)."""
+    print("phase 11: the port's benchmarks: python -m fastdfs_tpu_torch.bench "
+          "and --multichip at full size, each in a process of its own; "
+          f"bench_configs config 4 at scale {C4_SCALE} and config 5 here")
+    total: dict[str, int] = {}
+    check_flagship(card, total)
+    check_multichip(card, total)
+    with tempfile.TemporaryDirectory(prefix="fdfs11") as out_dir:
+        art4, n4 = counted(lambda: bench_configs.config4(out_dir, C4_SCALE))
+        art5, n5 = counted(lambda: bench_configs.config5(
+            out_dir, bench_configs.DEFAULT_SCALE[5]))
+    check(art4["kernel_bitexact_cuda_vs_plain"] is True,
+          "config 4: the kernel's signatures != the plain twin's")
+    recall = ("recall_at_1_vs_truth", "recall_at_5_vs_truth",
+              "recall_per_class", "referee_top1_agreement_acc_vs_textbook",
+              "referee_textbook_recall_at_1")
+    check(all(art4.get(key) is not None for key in recall)
+          and set(art4["recall_per_class"]) == {"span_edit", "scattered_edit"}
+          and art4["recall_pass"] is True,
+          f"config 4 recall fields: {[art4.get(key) for key in recall]}")
+    dispatches = art4["batches"] + 1 + bench_configs.RESIDENT_DISPATCHES
+    check(n4 == {"minhash_batch_cuda": dispatches},
+          f"config 4 launched {n4}, expected {dispatches} sketch launches")
+    print(f"  config 4 ({art4['docs']} documents, {art4['queries']} "
+          f"queries): recall@1 {art4['recall_at_1_vs_truth']}, recall@5 "
+          f"{art4['recall_at_5_vs_truth']}, by class "
+          f"{art4['recall_per_class']}, top-1 agreement with the textbook "
+          f"MinHash {art4['referee_top1_agreement_acc_vs_textbook']} over "
+          f"{art4['referee_queries']}; kernel == plain twin; streamed "
+          f"{art4['accelerated_sig_GBps_streamed']} GB/s, resident "
+          f"{art4['accelerated_sig_GBps_resident']} GB/s; launches {n4}  "
+          f"[{card}]")
+    steps = art5["iterations"] + 1
+    check(art5["digests_shape"] == [32, 5] and art5["sigs_shape"] == [32, 64]
+          and art5["best_shape"] == [32] and art5["best_sim_finite"]
+          and art5["mesh"] == {"dp": 2, "sp": 2, "tp": 2}
+          and art5["iterations"] == bench_configs.C5_ITERATIONS,
+          f"config 5 artifact: {art5}")
+    check(n5 == {name: RANKS * steps for name in C5_WRAPPERS},
+          f"config 5 launched {n5} in {steps} steps")
+    print(f"  config 5: {art5['iterations']} steps of the (2, 2, 2) mesh on "
+          f"one card in {art5['seconds']} s ({art5['steps_per_sec']} steps "
+          f"a second, {art5['aggregate_GBps']} GB/s); shapes digests "
+          f"{art5['digests_shape']}, sigs {art5['sigs_shape']}, best finite; "
+          f"launches {n5}  [{card}]")
+    add_launches(total, n4)
+    add_launches(total, n5)
+    print(f"  phase 11 launches by wrapper: {total}; no plain twin on the "
+          f"card in config 4 or 5")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -2645,11 +2799,19 @@ def main() -> int:
         rec_sketch.launches += sketch_n
         rec_gear.launches += gear_n
         marks.append(time.monotonic())
+    n = phase_benches(dev, card)
+    rec_sha1.launches += n.get("sha1_batch_cuda", 0)
+    rec_sketch.launches += (n.get("minhash_batch_cuda", 0)
+                            + n.get("survivor_segmin_cuda", 0))
+    rec_sig.launches += n.get("signature_tiles_cuda", 0)
+    rec_block.launches += n.get("block_candidates_cuda", 0)
+    rec_index.launches += n.get("index_best_cuda", 0)
+    marks.append(time.monotonic())
     idle = [r.name for r in records if not r.launches]
     check(not idle, f"kernels never launched on the main path: {idle}")
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-8, the daemons' build and corpus, phases 9-10: "
+          f"(phases 2-8, the daemons' build and corpus, phases 9-11: "
           + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)

@@ -52,7 +52,8 @@ def test_every_module_is_listed():
                  "common.ini_config", "common.jumphash", "client.conn",
                  "client.tracker_client", "client.storage_client",
                  "client.client", "trace", "common.fileid", "common.mime",
-                 "common.http_token", "monitor", "cli"):
+                 "common.http_token", "monitor", "cli", "bench",
+                 "bench_configs"):
         assert "fastdfs_tpu_torch." + want in names
 
 
