@@ -153,10 +153,24 @@ before the last line):
    sketch launch a dispatch; and ``config5``: its 17 steps of the
    (2, 2, 2) mesh on the card, the artifact's shapes, each of the step's
    five kernels once a rank a step.
+12. The daemons' ingest through the port's sidecar process:
+   ``bench_configs`` config 2 at scale 1/128 (19 text documents, 89 MB,
+   four client connections to one storage) and config 3 at 1/512 (mixed
+   binaries through a tracker and two storages, until every file has its
+   replica), each once with ``dedup_mode = cpu`` and once behind ``python
+   -m fastdfs_tpu_torch.sidecar`` on the card.  Each sidecar leg must
+   count (no restart, error, upload retry or watchdog re-exec, and
+   ``fingerprint_bytes`` equal to the bytes sent); config 2's sidecar leg
+   must save the bytes and hit the chunks that its cpu leg does, config
+   3's legs must replay every file's recipe on the replica, and every
+   upload stage table must record fingerprint time, its shares summing to
+   1 +- 0.05.  Each leg's rates, stage shares and the sidecar's
+   ``engine_us`` and ``lock_wait_fraction`` are printed.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
 4, 5, 6, 7, 8, 9, 10 and 11 (each counted from 0 just before its run; the
-general-width kernel's two forms from the runs at shingle 4); launches
+general-width kernel's two forms from the runs at shingle 4; phase 12's
+sidecar launches in a process of its own and is not counted); launches
 made only to time or compare a kernel are not counted.  Those runs must call no plain
 twin on a CUDA tensor (the ``cuda_calls`` of ``gear_window``,
 ``index_best``, ``rs_code.gf_matmul_torch``, ``minhash.survivor_ragged``,
@@ -2712,6 +2726,120 @@ def phase_benches(dev, card: str) -> dict[str, int]:
     return total
 
 
+# Phase 12: configs 2 and 3, the daemons' ingest through the port's
+# sidecar process on the card.
+
+C2_SCALE = 1 / 128                     # config 2 here: 19 documents, 89 MB
+C3_SCALE = 1 / 512                     # config 3 here: ~105 MB of files
+# Cuts of config 2's first document (the same at every scale) by the
+# reference's serial chunker; tests/test_torch_bench_daemon.py holds the
+# port's chunker to it.
+C2_FIRST_DOC_CUTS = 645
+
+
+def check_stage_table(what: str, st: dict | None) -> str:
+    """A leg's upload stage table: fingerprint time recorded, shares
+    summing to 1 +- 0.05; returns its shares as text."""
+    check(st is not None and st["count"] >= 1
+          and st["stages_s"]["fp_us"] > 0
+          and abs(sum(st["stage_share"].values()) - 1.0) <= 0.05,
+          f"{what}: upload stage table {st}")
+    return ", ".join(f"{k} {v}" for k, v in st["stage_share"].items() if v)
+
+
+def check_sidecar_leg(what: str, leg: dict, scaled_bytes: int,
+                      device: str) -> dict:
+    """The leg counts (no restart, error, retry or re-exec, every byte
+    fingerprinted) and ran on ``device``; returns its sidecar stats."""
+    faults = bench_configs.leg_faults(leg, scaled_bytes)
+    check(not faults, f"{what}: the sidecar leg does not count: {faults}")
+    check(leg["sidecar_platform"] == device,
+          f"{what}: the sidecar ran on {leg['sidecar_platform']}")
+    return leg["sidecar_stats"]
+
+
+def dedup_hits(leg: dict) -> list[int]:
+    """Each storage's ``store.dedup_hits`` after the leg's ingest."""
+    return [node.get("store.dedup_hits", 0)
+            for node in leg["daemon_stats"]["after"].values()]
+
+
+def phase_daemon_configs(dev, card: str, scale2: float = C2_SCALE,
+                         scale3: float = C3_SCALE) -> None:
+    """Phase 12: ``bench_configs`` configs 2 and 3 here, each leg held to
+    the daemon's own CPU dedup."""
+    print("phase 12: bench_configs config 2 at scale "
+          f"{scale2} and config 3 at scale {scale3}: the daemons' ingest "
+          "in dedup_mode cpu, then sidecar behind python -m "
+          f"fastdfs_tpu_torch.sidecar --platform {dev.type}; the sidecar "
+          "is a process of its own, so its kernel launches are not in the "
+          "kernels line (phases 3 and 9 hold the same engine to one launch "
+          "of each kernel per segment)")
+    with tempfile.TemporaryDirectory(prefix="fdfs12") as out_dir:
+        t0 = time.monotonic()
+        art2 = bench_configs.config2(out_dir, scale2, dev.type)
+        t2 = time.monotonic() - t0
+        art3 = bench_configs.config3(out_dir, scale3, dev.type)
+        t3 = time.monotonic() - t0 - t2
+    cpu, sc = art2["cpu_mode"], art2["sidecar_mode"]
+    stats = check_sidecar_leg("config 2", sc, art2["scaled_bytes"], dev.type)
+    check(art2["chunks_sample"] == C2_FIRST_DOC_CUTS,
+          f"config 2: {art2['chunks_sample']} cuts on the first document, "
+          f"the reference's chunker makes {C2_FIRST_DOC_CUTS}")
+    check(cpu["upload_retries"] == 0, "config 2: the cpu leg retried")
+    # The daemon's own CPU dedup is the referee: two runs of the cpu leg
+    # on one corpus save the same bytes, so the sidecar leg must too.
+    check(sc["dedup_bytes_saved"] == cpu["dedup_bytes_saved"]
+          and dedup_hits(sc) == dedup_hits(cpu),
+          f"config 2: saved {sc['dedup_bytes_saved']} bytes and hit "
+          f"{dedup_hits(sc)} chunks on the sidecar, {cpu['dedup_bytes_saved']}"
+          f" and {dedup_hits(cpu)} on the cpu")
+    print(f"  config 2 ({art2['docs']} documents, {art2['scaled_bytes']} "
+          f"bytes, {t2:.1f} s): chunks_sample {art2['chunks_sample']}, "
+          f"saved {cpu['dedup_bytes_saved']} bytes in both legs, chunk hits "
+          f"{dedup_hits(cpu)}; serial chunker "
+          f"{art2['chunker_py_serial_GBps']} GB/s, fdfs_codec "
+          f"{art2['chunker_cpp_GBps']} GB/s  [{card}]")
+    for name, leg in (("cpu", cpu), ("sidecar", sc)):
+        shares = check_stage_table(f"config 2 {name} leg",
+                                   leg["upload_stages"])
+        print(f"    {name} leg: daemon_ingest_GBps "
+              f"{leg['daemon_ingest_GBps']} ({leg['seconds']} s, "
+              f"{leg['client_conns']} connections, {leg['upload_retries']} "
+              f"retries); stage shares {shares}  [{card}]")
+    print(f"    sidecar: {stats['requests']} requests, {stats['chunks']} "
+          f"chunks, fingerprint_bytes {stats['fingerprint_bytes']}, "
+          f"engine_us {stats['engine_us']}, lock_wait_fraction "
+          f"{stats['lock_wait_fraction']}, restarts {sc['sidecar_restarts']}"
+          f"  [{card}]")
+
+    cpu, sc = art3["cpu_mode"], art3["sidecar_mode"]
+    stats = check_sidecar_leg("config 3", sc, art3["scaled_bytes"], dev.type)
+    print(f"  config 3 ({art3['files']} files, {art3['scaled_bytes']} bytes, "
+          f"{t3:.1f} s)  [{card}]")
+    for name, leg in (("cpu", cpu), ("sidecar", sc)):
+        check(leg["sync_recipe_replays"] == leg["files"] == art3["files"],
+              f"config 3 {name} leg: {leg['sync_recipe_replays']} recipe "
+              f"replays for {leg['files']} files")
+        shares = "; ".join(
+            f"node {i}: " + check_stage_table(f"config 3 {name} leg node {i}",
+                                              st)
+            for i, st in enumerate(leg["upload_stages_per_node"])
+            if st is not None)
+        print(f"    {name} leg: ingest_GBps {leg['ingest_GBps']} "
+              f"({leg['ingest_seconds']} s), replicated_GBps "
+              f"{leg['replicated_GBps']} ({leg['replicated_seconds']} s), "
+              f"sync_wire_bytes {leg['sync_wire_bytes']}, recipe replays "
+              f"{leg['sync_recipe_replays']}, saved per node "
+              f"{leg['dedup_bytes_saved_per_node']}; stage shares {shares}"
+              f"  [{card}]")
+    print(f"    sidecar: {stats['requests']} requests, {stats['chunks']} "
+          f"chunks, fingerprint_bytes {stats['fingerprint_bytes']}, "
+          f"engine_us {stats['engine_us']}, lock_wait_fraction "
+          f"{stats['lock_wait_fraction']}, restarts {sc['sidecar_restarts']}"
+          f"  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -2807,11 +2935,13 @@ def main() -> int:
     rec_block.launches += n.get("block_candidates_cuda", 0)
     rec_index.launches += n.get("index_best_cuda", 0)
     marks.append(time.monotonic())
+    phase_daemon_configs(dev, card)
+    marks.append(time.monotonic())
     idle = [r.name for r in records if not r.launches]
     check(not idle, f"kernels never launched on the main path: {idle}")
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-8, the daemons' build and corpus, phases 9-11: "
+          f"(phases 2-8, the daemons' build and corpus, phases 9-12: "
           + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)

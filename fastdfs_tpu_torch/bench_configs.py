@@ -1,9 +1,21 @@
-"""Benchmark configs 4 and 5 of ``BASELINE.json`` on the port.
+"""Benchmark configs 2-5 of ``BASELINE.json`` on the port.
 
 The port of the device configs of the repository's root
 ``bench_configs.py``: one JSON artifact per config, in ``--out``
 (``bench_torch_out/`` at the repository root by default):
 
+  2. one storage node, gear CDC over a text corpus: the real daemon
+     ingest (``fdfs_storaged`` behind ``fdfs_trackerd``, 4 client
+     connections, the access log on) once with ``dedup_mode = cpu`` and
+     once with ``dedup_mode = sidecar`` behind a supervised
+     ``python -m fastdfs_tpu_torch.sidecar`` on the card, each with its
+     per-stage table and the daemons' stats before and after; plus the
+     host's serial chunker and ``fdfs_codec cdc-bench`` on the first
+     document;
+  3. one tracker and a two-storage group, exact dedup over mixed
+     binaries: serial ingest and the wait for full replication, in both
+     dedup modes, one sidecar serving both daemons, with the sync wire
+     accounting from the stage tables;
   4. MinHash near-duplicate detection on synthetic web-crawl HTML
      (shingle 5), **the recall referee**: every document is signed by
      the fused sketch kernel (``minhash_batch_cuda``) fed through
@@ -17,31 +29,53 @@ The port of the device configs of the repository's root
 
 Run from the repository root:
 
-    python -m fastdfs_tpu_torch.bench_configs --config 4|5 [--scale F]
-        [--out DIR] [--device cuda|cpu]
+    python -m fastdfs_tpu_torch.bench_configs --config 2|3|4|5
+        [--scale F] [--out DIR] [--device cuda|cpu]
 
 ``--scale`` is the fraction of the nominal corpus size (``NOMINAL``)
 that the run builds (``DEFAULT_SCALE`` by default); the artifact records
 ``scaled_bytes`` beside ``nominal_bytes``.  The rates in an artifact are
 the card's on a ``cuda`` run and null on a ``cpu`` run, which checks the
-same control flow on the plain twins.  Configs 1-3 and 6-14 drive the C++
-daemons and are not ported here.
+same control flow on the plain twins; configs 2 and 3 keep their CPU
+leg's rates, which are the daemon's own.  The daemons come from
+``tests/torch_native.py`` (built with g++ when the checkout has none).
+
+The daemon fails open to flat files when its sidecar does not answer,
+so a sidecar leg counts only without restarts, errors, upload retries
+or a watchdog re-exec, and with every byte fingerprinted
+(``leg_faults``); configs 2 and 3 write their artifact and then raise
+when it does not.  ``--device cuda`` without a card raises before any
+daemon starts, and the sidecar never falls back to the CPU.  Configs 1
+and 6-14 run the daemons in ``dedup_mode = cpu`` only and are not
+ported here.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import functools
+import importlib.util
 import json
 import os
 import random
+import shutil
+import socket
+import struct
+import subprocess
+import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from fastdfs_tpu_torch.client import FdfsClient, StorageClient
 from fastdfs_tpu_torch.dedup.index import MinHashLSHIndex
 from fastdfs_tpu_torch.ops import resolve_device
 from fastdfs_tpu_torch.ops.cuda_minhash import minhash_batch_cuda
+from fastdfs_tpu_torch.ops.gear_cdc import chunk_stream_ref
 from fastdfs_tpu_torch.ops.minhash import minhash_batch
 from fastdfs_tpu_torch.ops.streaming import stream_batches
 from fastdfs_tpu_torch.parallel import distributed_ingest_step, make_mesh
@@ -50,14 +84,22 @@ from fastdfs_tpu_torch.tools.timing import card_line
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(REPO, "bench_torch_out")
 
-NOMINAL = {4: 100 << 30, 5: 500 << 30}
-DEFAULT_SCALE = {4: 1 / 40.0, 5: 1 / 2000.0}
+NOMINAL = {2: 10 << 30, 3: 50 << 30, 4: 100 << 30, 5: 500 << 30}
+DEFAULT_SCALE = {2: 1 / 32.0, 3: 1 / 64.0, 4: 1 / 40.0, 5: 1 / 2000.0}
 
 BATCH = 256            # documents a streamed batch
 STREAM_DEPTH = 3       # batches in flight
 RESIDENT_DISPATCHES = 8
 REFEREE_QUERIES = 512
 C5_ITERATIONS = 16
+
+HB = "heart_beat_interval = 1\nstat_report_interval = 1"
+INGEST_WORKERS = 4     # config 2's client connections
+REPLICATION_WAIT_S = 300.0  # config 3's wait for every file's replica
+SIDECAR_MAX_RSS_MB = 49152
+SIDECAR_START_S = 600  # a first start builds the kernels
+# What the sidecar's RSS watchdog prints before it re-execs the process.
+REEXEC_MARK = "re-exec (state saved)"
 
 
 def emit(out_dir: str, config: int, payload: dict) -> dict:
@@ -73,6 +115,633 @@ def emit(out_dir: str, config: int, payload: dict) -> dict:
                       **{k: payload[k] for k in payload
                          if isinstance(payload[k], (int, float, str, bool))}}))
     return payload
+
+
+def _load_by_path(name: str, *parts: str):
+    """A file of the repository outside the package, loaded by its path
+    (a host may have another package named ``tests`` or ``tools``)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, *parts))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@functools.cache
+def _native():
+    """``tests/torch_native.py``: the daemons' paths, build and start."""
+    return _load_by_path("fdfs_bench_native", "tests", "torch_native.py")
+
+
+@functools.cache
+def _access_log_stages():
+    """``tools/access_log_stages.py`` (it imports no package)."""
+    return _load_by_path("fdfs_access_log_stages", "tools",
+                         "access_log_stages.py")
+
+
+def _upload_retry(cli, data, timeout=25.0, **kw):
+    deadline = time.time() + timeout
+    while True:
+        try:
+            return cli.upload_buffer(data, **kw)
+        except Exception:
+            if time.time() >= deadline:
+                raise
+            time.sleep(0.5)
+
+
+def _cluster(tmp, device, n_storages=1, dedup_mode="cpu", sidecar_sock="",
+             access_log=False):
+    """A tracker and ``n_storages`` storages of group1, and a client."""
+    native = _native()
+    storaged, trackerd, _ = native.native_binaries()
+    extra = HB + ("\nuse_access_log = true" if access_log else "")
+    tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"))
+    sts = []
+    try:
+        for i in range(n_storages):
+            ip = "127.0.0.1" if n_storages == 1 else f"127.0.0.{60 + i}"
+            sts.append(native.start_storage(
+                storaged, os.path.join(tmp, f"st{i}"), ip=ip,
+                trackers=[f"127.0.0.1:{tr.port}"], dedup_mode=dedup_mode,
+                dedup_sidecar=sidecar_sock, extra=extra))
+    except Exception:
+        _stop(tr, sts)
+        raise
+    cli = FdfsClient([f"127.0.0.1:{tr.port}"], device=device)
+    return tr, sts, cli
+
+
+def _start_sidecar(tmp: str, device: torch.device, log_path: str,
+                   log_mode: str = "w"):
+    """Launch ``python -m fastdfs_tpu_torch.sidecar`` on ``device`` from
+    the repository root (so the module is this checkout's) and wait
+    until its socket accepts, which it does after the warm-up has built
+    and run the kernels.  Its output goes to ``log_path``."""
+    sock = os.path.join(tmp, "dedup.sock")
+    state = os.path.join(tmp, "sc_state")
+    os.makedirs(state, exist_ok=True)
+    args = [sys.executable, "-m", "fastdfs_tpu_torch.sidecar",
+            "--socket", sock, "--state-dir", state,
+            # Generous watchdog: restart rather than exhaust the host if a
+            # pass outgrows it (a re-exec voids the leg, leg_faults).
+            "--max-rss-mb", str(SIDECAR_MAX_RSS_MB),
+            "--platform", device.type]
+    with open(log_path, log_mode) as log:
+        proc = subprocess.Popen(args, cwd=REPO, stdout=log,
+                                stderr=subprocess.STDOUT)
+    deadline = time.time() + SIDECAR_START_S
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            with open(log_path, errors="replace") as fh:
+                tail = fh.read()[-2000:]
+            raise RuntimeError(f"sidecar died during warmup (exit "
+                               f"{proc.returncode}): {tail}")
+        if os.path.exists(sock):
+            try:
+                with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+                    s.connect(sock)
+                return proc, sock
+            except OSError:
+                pass
+        time.sleep(0.5)
+    proc.kill()
+    proc.wait()
+    raise TimeoutError("sidecar did not come up")
+
+
+def _sidecar_stats(sock_path: str) -> dict:
+    """Read the sidecar's service counters (DEDUP_COMMIT `stats`)."""
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.settimeout(60)
+        s.connect(sock_path)
+        body = b"stats"
+        s.sendall(struct.pack(">qBB", len(body), 122, 0) + body)
+        hdr = b""
+        while len(hdr) < 10:
+            part = s.recv(10 - len(hdr))
+            if not part:
+                raise OSError("sidecar closed")
+            hdr += part
+        ln = struct.unpack(">q", hdr[:8])[0]
+        resp = b""
+        while len(resp) < ln:
+            part = s.recv(ln - len(resp))
+            if not part:
+                raise OSError("sidecar closed mid-response")
+            resp += part
+    return json.loads(resp)
+
+
+def _stage_table(storage_base: str) -> dict:
+    """Aggregate the daemon's per-stage access log (upload rows)."""
+    path = os.path.join(storage_base, "logs", "access.log")
+    return _access_log_stages().aggregate(path) if os.path.exists(path) else {}
+
+
+class _SidecarSupervisor:
+    """Keeps a sidecar alive for the duration of a bench pass.
+
+    A sidecar that dies is respawned on the same device, reloading its
+    state from the same state dir (in production the init.d wrapper
+    does this), so a crash degrades to a fail-open window instead of
+    voiding the artifact; restarts are counted for it."""
+
+    MAX_RESTARTS = 10
+
+    def __init__(self, tmp: str, device: torch.device, log_path: str):
+        self.tmp = tmp
+        self.device = device
+        self.log_path = log_path
+        self.restarts = 0
+        self.proc, self.sock = _start_sidecar(tmp, device, log_path)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        while not self._stop.wait(2.0):
+            if self.proc.poll() is None:
+                continue
+            if self.restarts >= self.MAX_RESTARTS:
+                return
+            self.restarts += 1
+            print(f"sidecar died (exit {self.proc.returncode}); "
+                  f"respawn #{self.restarts}", flush=True)
+            try:
+                proc, _ = _start_sidecar(self.tmp, self.device,
+                                         self.log_path, log_mode="a")
+            except (RuntimeError, TimeoutError, OSError):
+                continue  # next tick retries (until MAX_RESTARTS)
+            # stop() may have fired during the warm-up: the thread owns
+            # this fresh spawn until it is published, so it kills it
+            # here rather than orphan it holding the card.
+            if self._stop.is_set():
+                proc.terminate()
+                proc.wait()
+                return
+            self.proc = proc
+
+    def stop(self) -> None:
+        self._stop.set()
+        # The watch thread may be mid-respawn; it kills its own spawn
+        # when it notices the stop flag, so a bounded join here cannot
+        # leak a live process.
+        self._thread.join(timeout=15)
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            self.proc.wait()
+
+
+def _reexecs(log_path: str) -> int:
+    """The RSS watchdog's re-execs that the sidecar's log shows."""
+    try:
+        with open(log_path, errors="replace") as fh:
+            return fh.read().count(REEXEC_MARK)
+    except OSError:
+        return 0
+
+
+def _with_sidecar(run_fn, device: torch.device) -> dict:
+    """Start a supervised sidecar on ``device``, run ``run_fn(sock)``,
+    attach the engine-serialization pricing from the sidecar's stats
+    (and, in them, the watchdog re-execs its log shows), and always tear
+    the process down.  Returns the run's metric dict, or {"error": ...}
+    when the sidecar cannot come up at all."""
+    sc_tmp = tempfile.mkdtemp(prefix="bench_sc_")
+    # Per-launch log outside the artifacts dir (a later config must not
+    # clobber the post-mortem of an earlier crash); kept only when the
+    # artifact names it.
+    log_path = os.path.join(tempfile.gettempdir(),
+                            f"fastdfs_sidecar_{os.path.basename(sc_tmp)}.log")
+    result = None
+    sup = None
+    keep_log = False
+    try:
+        sup = _SidecarSupervisor(sc_tmp, device, log_path)
+        result = run_fn(sup.sock)
+        result["sidecar_platform"] = device.type
+        result["sidecar_restarts"] = sup.restarts
+        # Stats are best-effort: a sidecar that died mid-run must not
+        # discard the completed run's metrics (the daemon fails open,
+        # so the pass itself still finished).  After a respawn the
+        # counters cover only the current process, recorded as such.
+        try:
+            stats = _sidecar_stats(sup.sock)
+            busy = (stats.get("lock_wait_us", 0)
+                    + stats.get("engine_us", 1))
+            stats["lock_wait_fraction"] = round(
+                stats.get("lock_wait_us", 0) / max(busy, 1), 4)
+            stats["watchdog_reexecs"] = _reexecs(log_path)
+            if sup.restarts:
+                stats["note"] = ("counters cover the post-respawn "
+                                 "process only")
+            result["sidecar_stats"] = stats
+        except OSError as e:
+            result["sidecar_stats_error"] = str(e)
+            result["sidecar_stderr_log"] = log_path
+            keep_log = True
+        return result
+    except (RuntimeError, TimeoutError, OSError) as e:
+        keep_log = True
+        if result is not None:
+            result["error"] = str(e)
+            return result
+        return {"error": str(e), "sidecar_stderr_log": log_path}
+    finally:
+        if sup is not None:
+            sup.stop()
+        shutil.rmtree(sc_tmp, ignore_errors=True)
+        if not keep_log and os.path.exists(log_path):
+            os.unlink(log_path)
+
+
+def leg_faults(leg: dict, scaled_bytes: int) -> list[str]:
+    """Why a sidecar leg does not count (empty when it does): a restart,
+    an error, a retried upload, a watchdog re-exec, or bytes that did
+    not reach the sidecar.  Every document and file is over the daemon's
+    64 KiB ``dedup_chunk_threshold``, so every byte must."""
+    faults = []
+    if "error" in leg:
+        faults.append(f"error: {leg['error']}")
+    if leg.get("sidecar_restarts"):
+        faults.append(f"{leg['sidecar_restarts']} sidecar restarts")
+    if leg.get("upload_retries"):
+        faults.append(f"{leg['upload_retries']} upload retries")
+    stats = leg.get("sidecar_stats")
+    if stats is None:
+        faults.append(f"no sidecar stats: {leg.get('sidecar_stats_error')}")
+    else:
+        if stats.get("watchdog_reexecs"):
+            faults.append(f"{stats['watchdog_reexecs']} watchdog re-execs")
+        if stats.get("fingerprint_bytes") != scaled_bytes:
+            faults.append(f"fingerprint_bytes {stats.get('fingerprint_bytes')}"
+                          f" != scaled_bytes {scaled_bytes}")
+    return faults
+
+
+def _require_counted(config: int, leg: dict, scaled_bytes: int) -> None:
+    faults = leg_faults(leg, scaled_bytes)
+    if faults:
+        raise RuntimeError(f"config {config}: the sidecar leg does not "
+                           f"count: {'; '.join(faults)}")
+
+
+_EVIDENCE_PREFIXES = ("op.", "nio.", "dio.", "cache.", "ingest.", "scrub.",
+                      "sync.", "store.", "events.", "download.")
+
+
+def _stats_evidence(cli) -> dict:
+    """Per-storage registry snapshot for the artifact's evidence trail:
+    counters and gauges under the diagnostic prefixes plus histogram
+    summaries (count/sum), keyed by node address, taken before and after
+    each measured phase so that a rate ships its daemon-side context.
+    Best-effort: a dead node is an error entry, never a crashed bench."""
+    out: dict = {}
+    try:
+        rows = _storage_rows(cli)
+    except Exception as e:  # noqa: BLE001
+        return {"error": str(e)}
+    for r in rows:
+        addr = f"{r['ip']}:{r['port']}"
+        try:
+            with StorageClient(r["ip"], r["port"], device=cli.device) as sc:
+                reg = sc.stat()
+        except Exception as e:  # noqa: BLE001
+            out[addr] = {"error": str(e)}
+            continue
+        ev = {k: v for k, v in reg.get("counters", {}).items()
+              if k.startswith(_EVIDENCE_PREFIXES) and v}
+        ev.update({k: v for k, v in reg.get("gauges", {}).items()
+                   if k.startswith(_EVIDENCE_PREFIXES) and v})
+        for name, h in reg.get("histograms", {}).items():
+            if h.get("count"):
+                ev[name + ".count"] = h["count"]
+                ev[name + ".sum"] = h["sum"]
+        out[addr] = ev
+    return out
+
+
+def _stop(tr, sts):
+    for s in sts:
+        s.stop()
+    tr.stop()
+
+
+def _storage_rows(cli):
+    return cli._tracker().list_storages("group1")
+
+
+def _settled_saved(cli, idx=0, timeout=20.0):
+    """dedup_bytes_saved after the beat-reported stat stops moving: two
+    consecutive equal reads (stats reach the tracker every second)."""
+    last = -1
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        rows = _storage_rows(cli)
+        cur = int(rows[idx].get("dedup_bytes_saved", 0)) if rows else 0
+        if cur == last:
+            return cur
+        last = cur
+        time.sleep(1.2)
+    return last
+
+
+def _text_corpus(total: int, seed=2) -> list[bytes]:
+    """Web-text-like corpus with cross-document repetition: fresh prose
+    mixed with shared sections (boilerplate, quoted passages) that recur
+    across documents.  Byte for byte the reference's generator."""
+    rng = random.Random(seed)
+    nprng = np.random.RandomState(seed)
+    words = np.array([f"w{j}" for j in range(5000)], dtype=object)
+
+    def prose(n_bytes: int) -> bytes:
+        # a period roughly every 6-18 words; draw until the requested
+        # size is covered
+        out = bytearray()
+        while len(out) < n_bytes:
+            draw = words[nprng.randint(0, len(words),
+                                       max((n_bytes - len(out)) // 5 + 32,
+                                           16))]
+            i = 0
+            while i < len(draw) and len(out) < n_bytes:
+                k = rng.randint(6, 18)
+                out += " ".join(draw[i:i + k]).encode() + b". "
+                i += k
+        return bytes(out[:n_bytes])
+
+    shared_sections = [prose(rng.randint(32 << 10, 128 << 10))
+                       for _ in range(24)]
+    docs = []
+    made = 0
+    while made < total:
+        doc = bytearray()
+        target = rng.randint(1 << 20, 8 << 20)
+        while len(doc) < target:
+            if rng.random() < 0.5:
+                doc += rng.choice(shared_sections)
+            else:
+                doc += prose(rng.randint(16 << 10, 64 << 10))
+        docs.append(bytes(doc))
+        made += len(doc)
+    return docs
+
+
+def _daemon_ingest(docs: list[bytes], dedup_mode: str, device: torch.device,
+                   sidecar_sock: str = "", ext: str = "txt",
+                   workers: int = INGEST_WORKERS) -> dict:
+    """Upload ``docs`` through a fresh single-node cluster (with the
+    access log on) over ``workers`` concurrent client connections;
+    returns ingest metrics and the per-stage table of the upload
+    command."""
+    tmp = tempfile.mkdtemp(prefix=f"bench_ingest_{dedup_mode}_")
+    tr, sts, cli = _cluster(tmp, device, dedup_mode=dedup_mode,
+                            sidecar_sock=sidecar_sock, access_log=True)
+    try:
+        _upload_retry(cli, docs[0][:4096], ext=ext)  # wait-in (sub-threshold)
+        taddr = f"127.0.0.1:{tr.port}"
+        retries = [0] * workers
+
+        def feed(w):
+            # Per-upload retry on a fresh connection, counted: a retried
+            # upload voids a sidecar leg (leg_faults).  The timeout is
+            # generous: throughput is the metric, latency comes from the
+            # stage tables.
+            c = FdfsClient([taddr], timeout=600.0, device=device)
+            done = 0
+            for j in range(w, len(docs), workers):
+                for attempt in range(3):
+                    try:
+                        c.upload_buffer(docs[j], ext=ext)
+                        break
+                    except Exception:
+                        retries[w] += 1
+                        c.close()
+                        if attempt == 2:
+                            raise RuntimeError(
+                                f"upload {j} failed after retries")
+                        time.sleep(2)
+                        c = FdfsClient([taddr], timeout=600.0, device=device)
+                done += len(docs[j])
+            c.close()
+            return done
+
+        evidence = {"before": _stats_evidence(cli)}
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+            sent = sum(ex.map(feed, range(workers)))
+        dt = time.perf_counter() - t0
+        evidence["after"] = _stats_evidence(cli)
+        saved = _settled_saved(cli)
+        base = os.path.join(tmp, "st0")
+        _stop(tr, sts)  # flush + close the access log before reading it
+        tr = sts = None
+        table = _stage_table(base)
+        return {
+            "seconds": round(dt, 3),
+            "daemon_ingest_GBps": round(sent / dt / 1e9, 4),
+            "scaled_bytes": sent,
+            "uploads": len(docs),
+            "client_conns": workers,
+            "upload_retries": sum(retries),
+            "dedup_bytes_saved": saved,
+            "dedup_ratio": round(saved / sent, 4) if sent else 0.0,
+            "upload_stages": table.get("upload"),
+            "phase_wall_s": {"ingest": round(dt, 3)},
+            "daemon_stats": evidence,
+        }
+    finally:
+        cli.close()
+        if tr is not None:
+            _stop(tr, sts)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def config2(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """Gear CDC on a text corpus: the daemon's ingest in both dedup
+    modes (cpu, and the port's sidecar on ``device``), with per-stage
+    attribution from the access log, plus isolated chunker rates."""
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    total = int(NOMINAL[2] * scale)
+    docs = _text_corpus(total)
+
+    # isolated chunkers on one doc
+    sample = docs[0]
+    t0 = time.perf_counter()
+    cuts = chunk_stream_ref(sample)
+    py_serial_gbps = len(sample) / (time.perf_counter() - t0) / 1e9
+    codec = _native().codec_binary()
+    cpp_gbps = None
+    if codec is not None:
+        # cdc-bench times repeat passes inside the process (best-of), so
+        # the number is the chunker, not fork+pipe startup.
+        out = subprocess.run([codec, "cdc-bench", "2048", "13", "65536"],
+                             input=sample, stdout=subprocess.PIPE,
+                             check=True).stdout
+        cpp_gbps = json.loads(out)["GBps"]
+
+    cpu = _daemon_ingest(docs, "cpu", dev)
+    sidecar = _with_sidecar(
+        lambda sock: _daemon_ingest(docs, "sidecar", dev, sidecar_sock=sock),
+        dev)
+    if not on_card and "daemon_ingest_GBps" in sidecar:
+        sidecar["daemon_ingest_GBps"] = None
+
+    art = emit(out_dir, 2, {
+        "description": "single node, gear CDC on text corpus — daemon "
+                       "ingest in cpu AND sidecar (CUDA) dedup modes with "
+                       "stage attribution",
+        "nominal_bytes": NOMINAL[2],
+        "scaled_bytes": cpu["scaled_bytes"],
+        "docs": len(docs), "chunks_sample": len(cuts),
+        "card": card_line() if on_card else None,
+        "seconds": cpu["seconds"],
+        "daemon_ingest_GBps": cpu["daemon_ingest_GBps"],
+        "chunker_cpp_GBps": round(cpp_gbps, 3) if cpp_gbps else None,
+        "chunker_py_serial_GBps": round(py_serial_gbps, 4),
+        "dedup_bytes_saved": cpu["dedup_bytes_saved"],
+        "dedup_ratio": cpu["dedup_ratio"],
+        "cpu_mode": cpu,
+        "sidecar_mode": sidecar,
+    })
+    _require_counted(2, sidecar, cpu["scaled_bytes"])
+    return art
+
+
+def _mixed_binaries(total: int, seed=3) -> list[bytes]:
+    """Mixed binaries: random payloads, zero runs, and shared library-like
+    blocks reused across files.  Byte for byte the reference's."""
+    rng = np.random.RandomState(seed)
+    shared_blocks = [rng.randint(0, 256, 1 << 18, dtype=np.uint8).tobytes()
+                     for _ in range(16)]
+    files = []
+    made = 0
+    while made < total:
+        parts = []
+        target = int(rng.randint(1 << 20, 4 << 20))
+        size = 0
+        while size < target:
+            kind = rng.randint(4)
+            if kind == 0:
+                b = shared_blocks[rng.randint(len(shared_blocks))]
+            elif kind == 1:
+                b = bytes(1 << 17)
+            else:
+                b = rng.randint(0, 256, 1 << 17, dtype=np.uint8).tobytes()
+            parts.append(b)
+            size += len(b)
+        files.append(b"".join(parts))
+        made += size
+    return files
+
+
+def _config3_run(files: list[bytes], dedup_mode: str, device: torch.device,
+                 sidecar_sock: str = "") -> dict:
+    """One 2-storage ingest+replication pass; returns its metrics."""
+    tmp = tempfile.mkdtemp(prefix="bench_c3_")
+    tr, sts, cli = _cluster(tmp, device, n_storages=2, dedup_mode=dedup_mode,
+                            sidecar_sock=sidecar_sock, access_log=True)
+    try:
+        t = cli._tracker()
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            groups = t.list_groups()
+            if groups and groups[0]["active"] == 2:
+                break
+            time.sleep(0.5)
+        evidence = {"before": _stats_evidence(cli)}
+        t0 = time.perf_counter()
+        fids = []
+        sent = 0
+        for f in files:
+            fids.append(cli.upload_buffer(f, ext="bin"))
+            sent += len(f)
+        ingest_dt = time.perf_counter() - t0
+        evidence["after_ingest"] = _stats_evidence(cli)
+        # wait for full replication (2 replicas per file); the reference
+        # ends this wait silently, and sync_recipe_replays shows it
+        deadline = time.time() + REPLICATION_WAIT_S
+        while time.time() < deadline:
+            if all(len(t.query_fetch_all(fid)) == 2 for fid in fids):
+                break
+            time.sleep(0.5)
+        repl_dt = time.perf_counter() - t0
+        evidence["after"] = _stats_evidence(cli)
+        _settled_saved(cli)
+        rows = _storage_rows(cli)
+        bases = [os.path.join(tmp, "st0"), os.path.join(tmp, "st1")]
+        _stop(tr, sts)  # flush access logs
+        tr = sts = None
+        tables = [_stage_table(b) for b in bases]
+        # Chunk-aware replication wire accounting: request bytes of the
+        # sync ops, vs the full-copy baseline (= every logical byte once).
+        sync_ops = ("sync_create", "sync_query_chunks", "sync_recipe")
+        sync_wire = sum(tb.get(op, {}).get("req_bytes", 0)
+                        for tb in tables for op in sync_ops)
+        return {
+            "scaled_bytes": sent,
+            "files": len(files),
+            "ingest_seconds": round(ingest_dt, 3),
+            "ingest_GBps": round(sent / ingest_dt / 1e9, 4),
+            "replicated_seconds": round(repl_dt, 3),
+            "replicated_GBps": round(2 * sent / repl_dt / 1e9, 4),
+            "dedup_bytes_saved_per_node": [
+                int(r.get("dedup_bytes_saved", 0)) for r in rows],
+            "sync_wire_bytes": sync_wire,
+            "sync_wire_saved_vs_full_copy": sent - sync_wire,
+            "sync_recipe_replays": sum(tb.get("sync_recipe", {})
+                                       .get("count", 0) for tb in tables),
+            "upload_stages_per_node": [tb.get("upload") for tb in tables],
+            "sync_create_stages_per_node": [tb.get("sync_create")
+                                            for tb in tables],
+            "phase_wall_s": {"ingest": round(ingest_dt, 3),
+                             "replication": round(repl_dt - ingest_dt, 3)},
+            "daemon_stats": evidence,
+        }
+    finally:
+        cli.close()
+        if tr is not None:
+            _stop(tr, sts)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def config3(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """2-storage group: exact dedup + full intra-group replication, in
+    both dedup modes (one shared sidecar on ``device`` serves both
+    daemons)."""
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    total = int(NOMINAL[3] * scale)
+    files = _mixed_binaries(total)
+
+    cpu = _config3_run(files, "cpu", dev)
+    sidecar = _with_sidecar(
+        lambda sock: _config3_run(files, "sidecar", dev, sidecar_sock=sock),
+        dev)
+    if not on_card:
+        for key in ("ingest_GBps", "replicated_GBps"):
+            if key in sidecar:
+                sidecar[key] = None
+
+    art = emit(out_dir, 3, {
+        "description": "1 tracker + 2 storages, SHA1 exact dedup, mixed "
+                       "binaries, full replication — cpu AND sidecar "
+                       "(CUDA) dedup modes",
+        "nominal_bytes": NOMINAL[3], "scaled_bytes": cpu["scaled_bytes"],
+        "files": cpu["files"],
+        "card": card_line() if on_card else None,
+        "ingest_seconds": cpu["ingest_seconds"],
+        "ingest_GBps": cpu["ingest_GBps"],
+        "replicated_seconds": cpu["replicated_seconds"],
+        "replicated_GBps": cpu["replicated_GBps"],
+        "dedup_bytes_saved_per_node": cpu["dedup_bytes_saved_per_node"],
+        "cpu_mode": cpu,
+        "sidecar_mode": sidecar,
+    })
+    _require_counted(3, sidecar, cpu["scaled_bytes"])
+    return art
 
 
 def _html_corpus(total: int, seed=4):
@@ -365,12 +1034,12 @@ def config5(out_dir: str, scale: float, device: str = "cuda") -> dict:
     })
 
 
-CONFIGS = {4: config4, 5: config5}
+CONFIGS = {2: config2, 3: config3, 4: config4, 5: config5}
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
-        description="BASELINE.json configs 4 and 5 on the port")
+        description="BASELINE.json configs 2-5 on the port")
     ap.add_argument("--config", type=int, choices=sorted(CONFIGS),
                     required=True)
     ap.add_argument("--scale", type=float, default=None,

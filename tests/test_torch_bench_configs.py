@@ -2,7 +2,9 @@
 against the reference's root ``bench_configs.py``: the same corpus and
 referee byte for byte, the same recall, classes, counts and agreement
 from config 4 on the CPU, and config 5's artifact shapes with eight CPU
-ranks."""
+ranks; the sizes of configs 2-5, and each refusing ``cuda`` without a
+card (configs 2 and 3 before any daemon; their runs are in
+``tests/test_torch_bench_daemon.py``)."""
 
 import json
 import os
@@ -45,7 +47,7 @@ def test_textbook_minhash_is_the_references(n_docs, num_perms, shingle):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("config", [4, 5])
+@pytest.mark.parametrize("config", [2, 3, 4, 5])
 def test_sizes_are_the_references(config):
     assert bc.NOMINAL[config] == ref_bc.NOMINAL[config]
     assert bc.DEFAULT_SCALE[config] == ref_bc.DEFAULT_SCALE[config]
@@ -58,10 +60,15 @@ def test_default_out_is_ignored_and_not_the_references():
         assert "bench_torch_out/" in fh.read().split()
 
 
-@pytest.mark.parametrize("config", [4, 5])
-def test_configs_refuse_cuda_without_a_card(config, tmp_path):
+@pytest.mark.parametrize("config", [2, 3, 4, 5])
+def test_configs_refuse_cuda_without_a_card(config, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
+
+    def no_daemons():
+        raise AssertionError("a daemon was looked up before the device")
+
+    monkeypatch.setattr(bc, "_native", no_daemons)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bc.CONFIGS[config](str(tmp_path), bc.DEFAULT_SCALE[config])
     assert not os.listdir(tmp_path)

@@ -1,9 +1,12 @@
-"""The storage and tracker daemons for the port's live tests and
-``chip_smoke.py``: paths to ``fdfs_storaged`` and ``fdfs_trackerd``.
+"""The storage and tracker daemons for the port's live tests,
+``chip_smoke.py`` and the port's ``bench_configs``: paths to
+``fdfs_storaged`` and ``fdfs_trackerd``, and to ``fdfs_codec`` (its
+``cdc-bench`` times the daemon's chunker) through ``codec_binary()``.
 
-The checkout's ``native/build/`` serves when it holds both.  Otherwise
-both are built with plain g++ into ``native/build-smoke/`` (gitignored)
-from the source lists of ``tools/build_native_gxx.sh``, with
+The checkout's ``native/build/`` serves when it holds both daemons.
+Otherwise all three are built with plain g++ into ``native/build-smoke/``
+(gitignored) from the source lists and link lines of
+``tools/build_native_gxx.sh``, with
 ``-include cstddef``: g++ 12 and later reject ``native/tracker/hotmap.cc``,
 which uses ``ptrdiff_t`` without ``<cstddef>``.  One g++ per source, all
 started together; about half a minute on 8 cores.  A file lock keeps parallel
@@ -44,6 +47,7 @@ NATIVE = os.path.join(REPO, "native")
 GXX_SCRIPT = os.path.join(REPO, "tools", "build_native_gxx.sh")
 SMOKE_BUILD = os.path.join(NATIVE, "build-smoke")
 FLAGS = ("-std=c++17", "-O2", "-I.", "-include", "cstddef")
+OUTPUTS = ("fdfs_storaged", "fdfs_trackerd", "fdfs_codec")
 
 
 def _load_harness():
@@ -72,8 +76,9 @@ def _sources() -> dict[str, list[str]]:
 
 
 def _stamp() -> str:
-    """A hash of every native source and header and of the flags."""
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    """A hash of every native source and header, of the flags and of the
+    binaries built."""
+    h = hashlib.sha256(" ".join(FLAGS + OUTPUTS).encode())
     for path in sorted(glob.glob(os.path.join(NATIVE, "*", "*.[ch]*"))):
         if os.path.isfile(path):
             h.update(os.path.relpath(path, NATIVE).encode())
@@ -127,7 +132,16 @@ def _build() -> None:
            os.path.join(SMOKE_BUILD, "fdfs_storaged")],
           [*link, "tracker/main.cc", tracker,
            _obj("storage/admission.cc"), common, "-lpthread", "-o",
-           os.path.join(SMOKE_BUILD, "fdfs_trackerd")]])
+           os.path.join(SMOKE_BUILD, "fdfs_trackerd")],
+          [*link, "tools/codec_cli.cc",
+           *(_obj(src) for src in ("storage/slabstore.cc",
+                                   "storage/ecstore.cc",
+                                   "storage/admission.cc",
+                                   "tracker/placement.cc",
+                                   "tracker/cluster.cc",
+                                   "tracker/hotmap.cc")),
+           common, "-lpthread", "-o",
+           os.path.join(SMOKE_BUILD, "fdfs_codec")]])
 
 
 def native_binaries() -> tuple[str, str, float]:
@@ -141,8 +155,7 @@ def native_binaries() -> tuple[str, str, float]:
         return pair[0], pair[1], 0.0
     t0 = time.monotonic()
     os.makedirs(SMOKE_BUILD, exist_ok=True)
-    pair = (os.path.join(SMOKE_BUILD, "fdfs_storaged"),
-            os.path.join(SMOKE_BUILD, "fdfs_trackerd"))
+    outputs = [os.path.join(SMOKE_BUILD, name) for name in OUTPUTS]
     stamp_path = os.path.join(SMOKE_BUILD, "stamp")
     with open(os.path.join(SMOKE_BUILD, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -152,13 +165,22 @@ def native_binaries() -> tuple[str, str, float]:
                 fresh = fh.read() == want
         except OSError:
             fresh = False
-        if not (fresh and all(os.path.exists(p) for p in pair)):
+        if not (fresh and all(os.path.exists(p) for p in outputs)):
             if os.path.exists(stamp_path):
                 os.unlink(stamp_path)
             _build()
             with open(stamp_path, "w") as fh:
                 fh.write(want)
-    return pair[0], pair[1], time.monotonic() - t0
+    return outputs[0], outputs[1], time.monotonic() - t0
+
+
+def codec_binary() -> str | None:
+    """``fdfs_codec`` beside the daemons ``native_binaries()`` gives: the
+    smoke build always has it, a checkout's ``native/build/`` may not
+    (then None)."""
+    storaged = native_binaries()[0]
+    path = os.path.join(os.path.dirname(storaged), "fdfs_codec")
+    return path if os.path.exists(path) else None
 
 
 def start_tracker(trackerd: str, base: str, **kw):
@@ -266,4 +288,5 @@ def shingle_segment(rng: np.random.Generator, k: int
 
 if __name__ == "__main__":
     storaged, trackerd, seconds = native_binaries()
-    print(f"{storaged}\n{trackerd}\nbuilt in {seconds:.1f} s")
+    print(f"{storaged}\n{trackerd}\n{codec_binary()}\n"
+          f"built in {seconds:.1f} s")
