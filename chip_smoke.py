@@ -166,12 +166,29 @@ before the last line):
    upload stage table must record fingerprint time, its shares summing to
    1 +- 0.05.  Each leg's rates, stage shares and the sidecar's
    ``engine_us`` and ``lock_wait_fraction`` are printed.
+13. The single-storage configs of ``bench_configs``, in this process:
+   config 6 at its default scale (480 negotiated uploads of 256 KB
+   blobs to one storage in three passes, cold, warm and tail-edited,
+   each fingerprinted by ``FdfsClient(device="cuda")`` on the card),
+   counted: the wire bytes of each pass and the daemon's ingest
+   counters equal to the reference artifact's five numbers, one SHA-1
+   launch an upload, one or two gear launches an upload, no plain twin;
+   then the same corpus on the client's host route, which must ship
+   the same bytes, both routes' pass seconds printed, and the median
+   wall of one blob's fingerprint on each route.  Configs 1 (``fdfs_load``
+   at 1/64), 7 (the scrubber off, paced and unpaced, at 1/2048) and 8
+   (read cache 0 and 64 MB, the parallel-4 ranged download, at 1/1024),
+   counted too, launch no kernel; ``errors`` 0 and half the bytes saved,
+   no false corruption with chunks verified only when the scrubber
+   runs, and no wrong byte with cache hits only at 64 MB.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
-4, 5, 6, 7, 8, 9, 10 and 11 (each counted from 0 just before its run; the
-general-width kernel's two forms from the runs at shingle 4; phase 12's
-sidecar launches in a process of its own and is not counted); launches
-made only to time or compare a kernel are not counted.  Those runs must call no plain
+4, 5, 6, 7, 8, 9, 10, 11 and 13 (each counted from 0 just before its
+run; the general-width kernel's two forms from the runs at shingle 4;
+phase 12's sidecar launches in a process of its own and is not counted;
+phase 13's are config 6's run on the card, its warm-up fingerprint
+included); launches made only to time or compare a kernel are not
+counted.  Those runs must call no plain
 twin on a CUDA tensor (the ``cuda_calls`` of ``gear_window``,
 ``index_best``, ``rs_code.gf_matmul_torch``, ``minhash.survivor_ragged``,
 ``minhash.survivor_segmin`` and ``minhash.signature_tiles`` stay 0).
@@ -2840,6 +2857,135 @@ def phase_daemon_configs(dev, card: str, scale2: float = C2_SCALE,
           f"  [{card}]")
 
 
+# Phase 13: the single-storage configs of bench_configs.py, config 6's
+# negotiated uploads fingerprinted on the card, and configs 1, 7 and 8.
+
+# Config 6 at its default scale (160 blobs of 256 KB, three passes): the
+# wire bytes each pass ships and the daemon's ingest counters, as
+# bench_artifacts/config6.json has them and the client's host route
+# gives them (tests/test_torch_bench_host.py).
+C6_WIRE = {"cold": 41943040, "warm": 0, "edited": 6542419}
+C6_SAVED_WIRE = 77343661
+C6_UPLOADS = 480
+C1_SCALE = 1 / 64                      # config 1 here: 64 pieces, 16 MB
+C7_SCALE = 1 / 2048                    # config 7 here: 20 blobs preloaded
+C8_SCALE = 1 / 1024                    # config 8 here: 40 blobs, 10 MB file
+
+
+def check_config6(what: str, art: dict) -> None:
+    """Config 6's five exact numbers and a clean warm pass."""
+    wire = {name: art[name]["wire_bytes_sent"] for name in C6_WIRE}
+    ingest = art["ingest_counters"]
+    check(wire == C6_WIRE
+          and ingest.get("ingest.bytes_saved_wire") == C6_SAVED_WIRE
+          and ingest.get("ingest.recipe_uploads") == C6_UPLOADS
+          and ingest.get("ingest.recipe_fallbacks") == 0
+          and art["warm_pass_ok"] is True,
+          f"config 6 {what}: wire bytes {wire}, ingest {ingest}, warm ok "
+          f"{art['warm_pass_ok']}")
+
+
+def phase_host_configs(dev, card: str) -> dict[str, int]:
+    """Phase 13; returns the launches of config 6's run on the card by
+    wrapper (counted from 0 just before it)."""
+    print("phase 13: bench_configs config 6 at its default scale on the "
+          "card, then on the client's host route; configs 1 at "
+          f"{C1_SCALE}, 7 at {C7_SCALE} and 8 at {C8_SCALE} (no kernel)")
+    scale6 = bench_configs.DEFAULT_SCALE[6]
+    with tempfile.TemporaryDirectory(prefix="fdfs13") as out_dir:
+        art6, n6 = counted(lambda: bench_configs.config6(out_dir, scale6,
+                                                         dev.type))
+        art6c = bench_configs.config6(out_dir, scale6, "cpu")
+        art1, n1 = counted(lambda: bench_configs.config1(out_dir, C1_SCALE,
+                                                         dev.type))
+        art7, n7 = counted(lambda: bench_configs.config7(out_dir, C7_SCALE,
+                                                         dev.type))
+        art8, n8 = counted(lambda: bench_configs.config8(out_dir, C8_SCALE,
+                                                         dev.type))
+    check_config6("on the card", art6)
+    check_config6("on the host", art6c)
+    launches = art6["kernel_launches"]
+    check(not bench_configs.launch_faults(launches, C6_UPLOADS)
+          and launches["uploads"] == C6_UPLOADS,
+          f"config 6 launches {launches}")
+    # The config's one warm-up fingerprint, before the passes, adds one
+    # launch of each kernel to the counted run.
+    check(n6 == {"sha1_ragged_cuda":
+                 launches["sha1_ragged_cuda.launches"] + 1,
+                 "gear_candidates_cuda":
+                 launches["gear_candidates_cuda.launches"] + 1},
+          f"config 6 run launched {n6}, the passes {launches}")
+    check(art6["card"] == card and "on the card" in art6["description"],
+          f"config 6 card {art6['card']}: {art6['description']}")
+    for name in C6_WIRE:
+        print(f"  config 6 {name}: {art6[name]['wire_bytes_sent']} wire "
+              f"bytes of {art6[name]['logical_bytes']}; seconds on the card "
+              f"{art6[name]['seconds']}, on the host route "
+              f"{art6c[name]['seconds']}  [{card}]")
+    print(f"  config 6 ingest counters {art6['ingest_counters']}; launches "
+          f"over the {C6_UPLOADS} uploads {launches}, the run {n6}  "
+          f"[{card}]")
+
+    check(n1 == n7 == n8 == {},
+          f"configs 1, 7, 8 launched kernels: {n1}, {n7}, {n8}")
+    check(art1["errors"] == 0 and art1["uploads"] == 64
+          and art1["dedup_bytes_saved"] == art1["scaled_bytes"] // 2,
+          f"config 1: errors {art1['errors']}, uploads {art1['uploads']}, "
+          f"saved {art1['dedup_bytes_saved']} of {art1['scaled_bytes']}")
+    print(f"  config 1 ({art1['uploads']} pieces of 256 KB, "
+          f"{art1['client_threads']} fdfs_load threads): ingest "
+          f"{art1['daemon_ingest_GBps']} GB/s, upload latency us "
+          f"{art1['upload_lat_us']}; download {art1['download_GBps']} GB/s, "
+          f"latency us {art1['download_lat_us']}; saved "
+          f"{art1['dedup_bytes_saved']} bytes; one core's crc32 "
+          f"{art1['cpu_crc32_GBps']}, sha1 {art1['cpu_sha1_GBps']} GB/s  "
+          f"[{card}]")
+    modes = art7["modes"]
+    verified = {m: (v["chunks_verified"], v["chunks_corrupt"])
+                for m, v in modes.items()}
+    check(art7["no_false_corruption"] is True
+          and modes["off"]["chunks_verified"] == 0
+          and modes["bw16"]["chunks_verified"] > 0
+          and modes["unlimited"]["chunks_verified"] > 0,
+          f"config 7: chunks verified and corrupt by mode {verified}")
+    for name, m in modes.items():
+        print(f"  config 7 {name}: {m['ops']} ops, upload p50/p99 "
+              f"{m['upload_p50_ms']}/{m['upload_p99_ms']} ms, download "
+              f"p50/p99 {m['download_p50_ms']}/{m['download_p99_ms']} ms; "
+              f"scrub passes {m['scrub_passes']}, chunks verified "
+              f"{m['chunks_verified']}  [{card}]")
+    modes = art8["modes"]
+    check(art8["wrong_bytes"] == 0 and modes["cache0"]["cache_hits"] == 0
+          and modes["cache64"]["cache_hits"] > 0,
+          f"config 8: wrong_bytes {art8['wrong_bytes']}, cache hits "
+          f"{[m['cache_hits'] for m in modes.values()]}")
+    for name, m in modes.items():
+        print(f"  config 8 {name}: cold p50/p99 {m['cold']['p50_ms']}/"
+              f"{m['cold']['p99_ms']} ms, warm {m['warm']['p50_ms']}/"
+              f"{m['warm']['p99_ms']} ms, cache hits {m['cache_hits']}  "
+              f"[{card}]")
+    # The client's fingerprint of one 256 KB upload on each route, over
+    # config 6's blobs (not counted: the counted run is above).
+    corpus, _ = bench_configs._config6_corpus(
+        int(bench_configs.NOMINAL[6] * scale6))
+    for route in (dev.type, "cpu"):
+        wall = []
+        for blob in corpus:
+            t0 = time.perf_counter()
+            fingerprint_buffer(blob, device=route)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        print(f"  client fingerprint of a 256 KB blob on {route}: median "
+              f"{statistics.median(wall):.4f} ms, min {min(wall):.4f}, max "
+              f"{max(wall):.4f} over {len(wall)} blobs  [{card}]")
+    par = art8["parallel"]
+    print(f"  config 8 ranged download of {par['file_bytes']} bytes on "
+          f"{par['host_cpus']} host CPUs: single stream "
+          f"{par['single_stream_s']} s, parallel 4 {par['parallel4_s']} s "
+          f"(speedup {par['speedup']}); wrong bytes {art8['wrong_bytes']}  "
+          f"[{card}]")
+    return n6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -2937,11 +3083,15 @@ def main() -> int:
     marks.append(time.monotonic())
     phase_daemon_configs(dev, card)
     marks.append(time.monotonic())
+    n = phase_host_configs(dev, card)
+    rec_sha1.launches += n["sha1_ragged_cuda"]
+    rec_gear.launches += n["gear_candidates_cuda"]
+    marks.append(time.monotonic())
     idle = [r.name for r in records if not r.launches]
     check(not idle, f"kernels never launched on the main path: {idle}")
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-8, the daemons' build and corpus, phases 9-12: "
+          f"(phases 2-8, the daemons' build and corpus, phases 9-13: "
           + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)

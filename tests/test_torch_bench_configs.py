@@ -2,9 +2,10 @@
 against the reference's root ``bench_configs.py``: the same corpus and
 referee byte for byte, the same recall, classes, counts and agreement
 from config 4 on the CPU, and config 5's artifact shapes with eight CPU
-ranks; the sizes of configs 2-5, and each refusing ``cuda`` without a
-card (configs 2 and 3 before any daemon; their runs are in
-``tests/test_torch_bench_daemon.py``)."""
+ranks; the sizes of configs 1-8, and each refusing ``cuda`` without a
+card (configs 1-3 and 6-8 before any daemon; their runs are in
+``tests/test_torch_bench_daemon.py`` and
+``tests/test_torch_bench_host.py``)."""
 
 import json
 import os
@@ -47,7 +48,7 @@ def test_textbook_minhash_is_the_references(n_docs, num_perms, shingle):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("config", [2, 3, 4, 5])
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_sizes_are_the_references(config):
     assert bc.NOMINAL[config] == ref_bc.NOMINAL[config]
     assert bc.DEFAULT_SCALE[config] == ref_bc.DEFAULT_SCALE[config]
@@ -60,7 +61,7 @@ def test_default_out_is_ignored_and_not_the_references():
         assert "bench_torch_out/" in fh.read().split()
 
 
-@pytest.mark.parametrize("config", [2, 3, 4, 5])
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_configs_refuse_cuda_without_a_card(config, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")

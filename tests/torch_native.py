@@ -1,12 +1,13 @@
 """The storage and tracker daemons for the port's live tests,
 ``chip_smoke.py`` and the port's ``bench_configs``: paths to
-``fdfs_storaged`` and ``fdfs_trackerd``, and to ``fdfs_codec`` (its
-``cdc-bench`` times the daemon's chunker) through ``codec_binary()``.
+``fdfs_storaged`` and ``fdfs_trackerd``, to ``fdfs_codec`` (its
+``cdc-bench`` times the daemon's chunker) through ``codec_binary()``,
+and to ``fdfs_load`` (the native load driver) through ``load_binary()``.
 
-The checkout's ``native/build/`` serves when it holds both daemons.
-Otherwise all three are built with plain g++ into ``native/build-smoke/``
-(gitignored) from the source lists and link lines of
-``tools/build_native_gxx.sh``, with
+The checkout's ``native/build/`` serves when it holds both daemons, and
+its ``fdfs_load`` when it has one.  Otherwise all four are built with
+plain g++ into ``native/build-smoke/`` (gitignored) from the source
+lists and link lines of ``tools/build_native_gxx.sh``, with
 ``-include cstddef``: g++ 12 and later reject ``native/tracker/hotmap.cc``,
 which uses ``ptrdiff_t`` without ``<cstddef>``.  One g++ per source, all
 started together; about half a minute on 8 cores.  A file lock keeps parallel
@@ -47,7 +48,7 @@ NATIVE = os.path.join(REPO, "native")
 GXX_SCRIPT = os.path.join(REPO, "tools", "build_native_gxx.sh")
 SMOKE_BUILD = os.path.join(NATIVE, "build-smoke")
 FLAGS = ("-std=c++17", "-O2", "-I.", "-include", "cstddef")
-OUTPUTS = ("fdfs_storaged", "fdfs_trackerd", "fdfs_codec")
+OUTPUTS = ("fdfs_storaged", "fdfs_trackerd", "fdfs_codec", "fdfs_load")
 
 
 def _load_harness():
@@ -141,18 +142,14 @@ def _build() -> None:
                                    "tracker/cluster.cc",
                                    "tracker/hotmap.cc")),
            common, "-lpthread", "-o",
-           os.path.join(SMOKE_BUILD, "fdfs_codec")]])
+           os.path.join(SMOKE_BUILD, "fdfs_codec")],
+          [*link, "tools/load_cli.cc", common, "-lpthread", "-o",
+           os.path.join(SMOKE_BUILD, "fdfs_load")]])
 
 
-def native_binaries() -> tuple[str, str, float]:
-    """``(fdfs_storaged, fdfs_trackerd, seconds spent building)``: the
-    checkout's ``native/build/`` pair when it has both, else the smoke
-    build, built or rebuilt under a file lock when its stamp is stale."""
-    built = os.path.join(NATIVE, "build")
-    pair = (os.path.join(built, "fdfs_storaged"),
-            os.path.join(built, "fdfs_trackerd"))
-    if all(os.path.exists(p) for p in pair):
-        return pair[0], pair[1], 0.0
+def _smoke_build() -> tuple[list[str], float]:
+    """The smoke build's ``OUTPUTS`` and the seconds spent on them: built
+    or rebuilt under a file lock when its stamp is stale."""
     t0 = time.monotonic()
     os.makedirs(SMOKE_BUILD, exist_ok=True)
     outputs = [os.path.join(SMOKE_BUILD, name) for name in OUTPUTS]
@@ -171,7 +168,20 @@ def native_binaries() -> tuple[str, str, float]:
             _build()
             with open(stamp_path, "w") as fh:
                 fh.write(want)
-    return outputs[0], outputs[1], time.monotonic() - t0
+    return outputs, time.monotonic() - t0
+
+
+def native_binaries() -> tuple[str, str, float]:
+    """``(fdfs_storaged, fdfs_trackerd, seconds spent building)``: the
+    checkout's ``native/build/`` pair when it has both, else the smoke
+    build's."""
+    built = os.path.join(NATIVE, "build")
+    pair = (os.path.join(built, "fdfs_storaged"),
+            os.path.join(built, "fdfs_trackerd"))
+    if all(os.path.exists(p) for p in pair):
+        return pair[0], pair[1], 0.0
+    outputs, seconds = _smoke_build()
+    return outputs[0], outputs[1], seconds
 
 
 def codec_binary() -> str | None:
@@ -181,6 +191,16 @@ def codec_binary() -> str | None:
     storaged = native_binaries()[0]
     path = os.path.join(os.path.dirname(storaged), "fdfs_codec")
     return path if os.path.exists(path) else None
+
+
+def load_binary() -> str:
+    """``fdfs_load``, the native load driver (``tools/load_cli.cc``): the
+    checkout's ``native/build/fdfs_load`` when it is there, else the
+    smoke build's."""
+    path = os.path.join(NATIVE, "build", "fdfs_load")
+    if os.path.exists(path):
+        return path
+    return _smoke_build()[0][OUTPUTS.index("fdfs_load")]
 
 
 def start_tracker(trackerd: str, base: str, **kw):
@@ -288,5 +308,5 @@ def shingle_segment(rng: np.random.Generator, k: int
 
 if __name__ == "__main__":
     storaged, trackerd, seconds = native_binaries()
-    print(f"{storaged}\n{trackerd}\n{codec_binary()}\n"
+    print(f"{storaged}\n{trackerd}\n{codec_binary()}\n{load_binary()}\n"
           f"built in {seconds:.1f} s")
