@@ -473,8 +473,7 @@ def _settled_saved(cli, idx=0, timeout=20.0):
     return last
 
 
-def _restart_storage(tmp: str, tr, sts: list, keys: str,
-                     dedup_mode: str = "cpu"):
+def _restart_storage(tmp: str, tr, sts: list, keys: str):
     """Stop storage 0 of a one-storage ``_cluster`` and start it again on
     the same port with ``keys`` added to its conf (``_cluster``'s conf
     has no scrub or cache keys); returns the new daemon, which also
@@ -485,7 +484,7 @@ def _restart_storage(tmp: str, tr, sts: list, keys: str,
     sts[0] = native.start_storage(
         native.native_binaries()[0], os.path.join(tmp, "st0"), ip=st.ip,
         port=st.port, trackers=[f"127.0.0.1:{tr.port}"],
-        dedup_mode=dedup_mode, extra=HB + "\n" + keys)
+        dedup_mode="cpu", extra=HB + "\n" + keys)
     return sts[0]
 
 
@@ -1191,12 +1190,12 @@ def launch_faults(launches: dict[str, int], uploads: int) -> list[str]:
     return faults
 
 
-def _config6_corpus(total: int, seed=6) -> tuple[list[bytes], list[bytes]]:
+def _config6_corpus(total: int) -> tuple[list[bytes], list[bytes]]:
     """Config 6's 256 KB random blobs and their copies with the trailing
     ~12% rewritten.  Byte for byte the reference's inline generator."""
     blob = 256 << 10
     n_files = max(total // blob, 4)
-    rng = np.random.RandomState(seed)
+    rng = np.random.RandomState(6)
     corpus = [rng.randint(0, 256, blob, dtype=np.uint8).tobytes()
               for _ in range(n_files)]
     edited = []

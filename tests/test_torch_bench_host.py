@@ -5,9 +5,9 @@ daemons and ``fdfs_load``.
 
 Config 6 runs at its default scale on the client's host route
 (``fingerprint_buffer(device="cpu")``: NumPy gear CDC and hashlib) and
-must ship the wire bytes of the checked-in reference artifact exactly;
-the card's route (``_fingerprint_device``, here on the kernels' plain
-twins) is held to the host route on one blob and its edited copy.
+must ship the wire bytes of the checked-in reference artifact exactly
+(``tests/test_torch_client_fingerprint.py`` holds the card's route to
+the reference on config 6's first blob and its edited copy).
 Configs 1, 7 and 8 run at their smallest scales.  Each artifact keeps
 the checked-in reference artifact's keys (``bench_artifacts/``), plus
 the card line and the keys that root ``bench_configs.py`` writes today
@@ -20,15 +20,10 @@ import os
 import shutil
 import subprocess
 
-import numpy as np
 import pytest
-import torch
 
 import bench_configs as ref_bc
 from fastdfs_tpu_torch import bench_configs as bc
-from fastdfs_tpu_torch.client import fingerprint_buffer
-from fastdfs_tpu_torch.client.fingerprint import _fingerprint_device
-from fastdfs_tpu_torch.ops import gear_cdc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEW = (1, 6, 7, 8)
@@ -193,23 +188,6 @@ def test_launch_faults(launches, faults):
     keys = ["sha1_ragged_cuda.launches", "gear_candidates_cuda.launches",
             "gear_window.cuda_calls"]
     assert bc.launch_faults(dict(zip(keys, launches)), 480) == faults
-
-
-@pytest.mark.parametrize("copy", ["original", "edited"])
-def test_device_route_is_the_host_route(copy):
-    """``_fingerprint_device`` (the card's route, here on the plain
-    twins) gives the host route's cuts and digests on config 6's first
-    blob and on its edited copy."""
-    corpus, edited = bc._config6_corpus(0)
-    data = (corpus if copy == "original" else edited)[0]
-    cuts, digests = _fingerprint_device(
-        data, gear_cdc.DEFAULT_MIN_SIZE, gear_cdc.DEFAULT_AVG_BITS,
-        gear_cdc.DEFAULT_MAX_SIZE, gear_cdc.CDC_POLICY_DEFAULT,
-        torch.device("cpu"))
-    host = fingerprint_buffer(data, device="cpu")
-    assert cuts == list(np.cumsum([fp.length for fp in host]))
-    assert digests == [fp.digest for fp in host]
-    assert cuts[-1] == len(data) and len(cuts) > 4
 
 
 def test_config1_on_the_cpu(config1):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fastdfs_tpu.client import fingerprint as jfp
+from fastdfs_tpu_torch import bench_configs
 from fastdfs_tpu_torch.client import ChunkFingerprint, fingerprint_buffer
 from fastdfs_tpu_torch.client import fingerprint as tfp
 from fastdfs_tpu_torch.ops import SEGMENT_SLACK, gear_cdc
@@ -71,19 +72,34 @@ def test_cpu_route_matches_reference(kind, geo, policy):
 
 # The card's route at the small geometry (the plain SHA-1 twin is slow on
 # long chunks): lengths below, at and above a power of two, where the
-# device pass's buffer has no room of its own past the payload.
+# device pass's buffer has no room of its own past the payload.  Then
+# config 6's first 256 KB blob and its edited copy at the default
+# geometry and policy, the client's calls in that config.
 DEVICE_SIZES = [1, 63, 4096, 4097, 8192, 20_000]
+DEVICE_CASES = (
+    [(n, SMALL_GEO, p) for p in POLICIES for n in DEVICE_SIZES]
+    + [(blob, DEFAULT_GEO, gear_cdc.CDC_POLICY_DEFAULT)
+       for blob in ("config6", "config6-edited")])
 
 
-@pytest.mark.parametrize("policy", POLICIES, ids=["default", "skipmin"])
-@pytest.mark.parametrize("n", DEVICE_SIZES)
-def test_device_route_matches_reference(n, policy):
-    data = np.random.RandomState(n).randint(0, 256, n,
+def _device_payload(n) -> bytes:
+    if isinstance(n, str):
+        corpus, edited = bench_configs._config6_corpus(0)
+        return (corpus if n == "config6" else edited)[0]
+    return np.random.RandomState(n).randint(0, 256, n,
                                             dtype=np.uint8).tobytes()
-    cuts, digests = tfp._fingerprint_device(data, *SMALL_GEO, policy,
+
+
+@pytest.mark.parametrize(
+    "n,geo,policy", DEVICE_CASES,
+    ids=[f"{n}-{'default' if p == POLICIES[0] else 'skipmin'}"
+         for n, _, p in DEVICE_CASES])
+def test_device_route_matches_reference(n, geo, policy):
+    data = _device_payload(n)
+    cuts, digests = tfp._fingerprint_device(data, *geo, policy,
                                             torch.device("cpu"))
     got = list(zip(np.diff([0] + cuts).tolist(), digests))
-    assert got == _pairs(jfp.fingerprint_buffer(data, *SMALL_GEO,
+    assert got == _pairs(jfp.fingerprint_buffer(data, *geo,
                                                 cdc_policy=policy))
 
 
