@@ -181,17 +181,38 @@ before the last line):
    counted too, launch no kernel; ``errors`` 0 and half the bytes saved,
    no false corruption with chunks verified only when the scrubber
    runs, and no wrong byte with cache hits only at 64 MB.
+14. Configs 9, 10 and 11 of ``bench_configs`` and the index tool
+   (``tools.bench_index_scale``), in this process, on the card's host:
+   config 9 at 1/2048 (200 unique 4 KB files a layout arm, slab packing
+   off and on, then 80% deleted and the slabs compacted), config 10 at
+   1/65536 (60 files of 64 KB under one open-loop zipfian load on one
+   group and on three, then group3 drained) and config 11 at 1/65536
+   (12 files of 256 KB demoted from 2x replication to RS(3, 2) stripes,
+   then two shards of every stripe rebuilt, unpaced and at 2 MB/s;
+   without the storages' admission ladder, which can shed a peer's
+   fetch of a released chunk and cut a download), and the index tool at
+   200,000 entries.  Each run, counted, launches no kernel and calls no
+   plain twin on the card.  Config 9 must lose no
+   byte, win 10x on inodes and reclaim 80% of its dead slab bytes with
+   both arms' downloads error-free; config 10 must see no error, spread
+   the three-group corpus within 10 points of a third and relocate all
+   of group3; config 11 must store ~2x replicated, at most (k+m)/k + 5%
+   demoted, lose no byte and rebuild from parity alone.  The timing
+   verdicts (packed ingest p50 no worse, the offered rate met by three
+   groups, the paced rebuild within its budget and slower than the
+   unpaced) are printed beside their readings, not checked.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
 4, 5, 6, 7, 8, 9, 10, 11 and 13 (each counted from 0 just before its
 run; the general-width kernel's two forms from the runs at shingle 4;
 phase 12's sidecar launches in a process of its own and is not counted;
 phase 13's are config 6's run on the card, its warm-up fingerprint
-included); launches made only to time or compare a kernel are not
-counted.  Those runs must call no plain
-twin on a CUDA tensor (the ``cuda_calls`` of ``gear_window``,
-``index_best``, ``rs_code.gf_matmul_torch``, ``minhash.survivor_ragged``,
-``minhash.survivor_segmin`` and ``minhash.signature_tiles`` stay 0).
+included; phase 14's runs are counted too and must launch none);
+launches made only to time or compare a kernel are not counted.  Those
+runs must call no plain twin on a CUDA tensor (the ``cuda_calls`` of
+``gear_window``, ``index_best``, ``rs_code.gf_matmul_torch``,
+``minhash.survivor_ragged``, ``minhash.survivor_segmin`` and
+``minhash.signature_tiles`` stay 0).
 The second-to-last line is a JSON object with one entry per kernel (the
 gear kernel's two forms as two entries, the sketch file's k = 5 kernel
 as one and its general-width kernel's two forms, fused ``sketch_k`` and
@@ -264,6 +285,7 @@ from fastdfs_tpu_torch.parallel import (fingerprint_mesh,
 from fastdfs_tpu_torch.parallel import ingest_step as ingest_step_mod
 from fastdfs_tpu_torch.parallel.ingest_step import HALO, block_candidates
 from fastdfs_tpu_torch.sidecar import DedupSidecar
+from fastdfs_tpu_torch.tools import bench_index_scale
 from fastdfs_tpu_torch.tools.timing import card_line, median_ms, once_ms
 from fastdfs_tpu_torch.trace import (Tracer, collect_cluster_spans,
                                      decode_dump, render_timeline,
@@ -2986,6 +3008,135 @@ def phase_host_configs(dev, card: str) -> dict[str, int]:
     return n6
 
 
+# Phase 14: configs 9, 10 and 11 of bench_configs.py and the index tool,
+# at their smallest corpora; none launches a kernel.
+C9_SCALE = 1 / 2048                    # config 9 here: 200 files of 4 KB
+C10_SCALE = 1 / 65536                  # config 10 here: 60 files of 64 KB
+C11_SCALE = 1 / 65536                  # config 11 here: 12 files of 256 KB
+INDEX_N = 200_000                      # the index tool's entries here
+# Config 11 here runs without the storages' admission ladder: under its
+# EC downloads a member's ladder can tighten and shed the peer's
+# FETCH_CHUNK of a released chunk (background class), and the peer then
+# cuts the client's download mid-body (native/storage/server.cc,
+# "missing chunk ... mid-download").  ``--config 11`` keeps the
+# reference's settings.
+NO_SHED = "\nadmission_control = 0"
+
+
+def phase_group_configs(dev, card: str) -> None:
+    """Phase 14: each run counted, none may launch a kernel."""
+    print(f"phase 14: bench_configs configs 9 at {C9_SCALE}, 10 at "
+          f"{C10_SCALE} and 11 at {C11_SCALE}, and the index tool at "
+          f"{INDEX_N} entries (no kernel)")
+    with tempfile.TemporaryDirectory(prefix="fdfs14") as out_dir:
+        art9, n9 = counted(lambda: bench_configs.config9(out_dir, C9_SCALE,
+                                                         dev.type))
+        art10, n10 = counted(lambda: bench_configs.config10(
+            out_dir, C10_SCALE, dev.type))
+        beats = bench_configs.HB
+        bench_configs.HB = beats + NO_SHED
+        try:
+            art11, n11 = counted(lambda: bench_configs.config11(
+                out_dir, C11_SCALE, dev.type))
+        finally:
+            bench_configs.HB = beats
+        index_path = os.path.join(out_dir, "index_scale.json")
+        _, n_index = counted(lambda: bench_index_scale.main(
+            ["--n", str(INDEX_N), "--out", index_path]))
+        with open(index_path) as fh:
+            index = json.load(fh)
+    check(n9 == n10 == n11 == n_index == {},
+          f"configs 9, 10, 11 and the index tool launched kernels: {n9}, "
+          f"{n10}, {n11}, {n_index}")
+    check(art9["card"] == art10["card"] == art11["card"] == index["card"]
+          == card, f"card lines {art9['card']}, {art10['card']}, "
+          f"{art11['card']}, {index['card']}")
+
+    modes = art9["modes"]
+    errors9 = {m: v["download"]["errors"] for m, v in modes.items()}
+    check(art9["files"] == 200 and art9["wrong_bytes"] == 0
+          and art9["inode_win_10x"] is True
+          and art9["compaction_reclaims_80pct"] is True
+          and errors9 == {"flat": 0, "packed": 0},
+          f"config 9: files {art9['files']}, wrong bytes "
+          f"{art9['wrong_bytes']}, inodes flat / packed "
+          f"{art9['inode_delta_flat']} / {art9['inode_delta_packed']}, "
+          f"reclaim {(art9['delete_heavy'] or {}).get('reclaim_pct')}%, "
+          f"download errors {errors9}")
+    for name, m in modes.items():
+        print(f"  config 9 {name}: ingest {m['ingest']['qps']} files/s, "
+              f"p50/p99 {m['ingest']['lat_p50_us']}/"
+              f"{m['ingest']['lat_p99_us']} us; download "
+              f"{m['download']['qps']} files/s, p50 "
+              f"{m['download']['lat_p50_us']} us; open fds "
+              f"{m['daemon_open_fds_after_ingest']}  [{card}]")
+    heavy = art9["delete_heavy"]
+    print(f"  config 9: inodes flat / packed {art9['inode_delta_flat']} / "
+          f"{art9['inode_delta_packed']}, files on disk "
+          f"{art9['files_on_disk_delta_flat']} / "
+          f"{art9['files_on_disk_delta_packed']}; reclaim "
+          f"{heavy['reclaim_pct']}% in {heavy['compactions']} compactions, "
+          f"{heavy['byte_checks_during_compaction']} byte checks during "
+          f"it; ingest_p50_no_worse {art9['ingest_p50_no_worse']} (packed "
+          f"/ flat p50 {art9['ingest_p50_packed_vs_flat']})  [{card}]")
+
+    arms = art10["arms"]
+    check(art10["files"] == 60 and art10["zero_errors"] is True
+          and art10["three_group_spread_within_10pct"] is True
+          and art10["drain_relocated_all"] is True,
+          f"config 10: files {art10['files']}, zero errors "
+          f"{art10['zero_errors']}, spread "
+          f"{arms['three_groups']['group_spread']}, drain "
+          f"{arms['three_groups'].get('drain')}")
+    for name, arm in arms.items():
+        dl = arm["open_download"]
+        print(f"  config 10 {name}: open-loop {dl['qps']} of "
+              f"{art10['offered_rate_qps']} offered qps, p50/p99 "
+              f"{dl['lat_p50_us']}/{dl['lat_p99_us']} us; preload "
+              f"{arm['preload']['qps']} qps  [{card}]")
+    drain = arms["three_groups"]["drain"]
+    print(f"  config 10: open_loop_rate_met_3g "
+          f"{art10['open_loop_rate_met_3g']}, p99 three / one "
+          f"{art10['p99_three_vs_one']}; drain moved "
+          f"{drain['files_moved']} files in {drain['wall_s']} s, "
+          f"{drain['pace_mb_s']} MB/s  [{card}]")
+
+    group = art11["group"]
+    check(art11["scaled_bytes"] == 12 * 256 * 1024
+          and art11["replication_near_2x"] is True
+          and art11["efficiency_pass"] is True
+          and art11["zero_wrong_bytes"] is True
+          and art11["reconstruct_from_parity_only"] is True,
+          f"config 11: physical / logical replicated "
+          f"{group['replicated_physical_over_logical']}, EC "
+          f"{group['ec_physical_over_logical']}, zero wrong bytes "
+          f"{art11['zero_wrong_bytes']}, from parity only "
+          f"{art11['reconstruct_from_parity_only']}")
+    for name in ("replicated_download", "ec_download"):
+        dl = group[name]
+        print(f"  config 11 {name}: {dl['qps']} qps, p50/p99 "
+              f"{dl['lat_p50_us']}/{dl['lat_p99_us']} us  [{card}]")
+    for name, r in art11["reconstruction"].items():
+        print(f"  config 11 {name} rebuild: {r['shards_rebuilt']} shards "
+              f"of {r['stripes']} stripes, {r['rebuilt_bytes']} bytes in "
+              f"{r['wall_s']} s, {r['rebuild_mb_s']} MB/s (budget "
+              f"{r['bandwidth_budget_mb_s']})  [{card}]")
+    print(f"  config 11: physical / logical "
+          f"{group['ec_physical_over_logical']} EC against "
+          f"{group['replicated_physical_over_logical']} "
+          f"replicated; paced_within_budget {art11['paced_within_budget']}, "
+          f"pacing_effective {art11['pacing_effective']}  [{card}]")
+
+    keys = ("inserts_per_sec", "max_100k_batch_pause_s",
+            "index_bytes_per_entry", "lookup_batch_per_sec",
+            "lookup_scalar_per_sec", "remove_per_sec", "final_merge_seconds",
+            "snapshot_mb", "snapshot_save_seconds", "snapshot_load_seconds")
+    check(index["entries"] == INDEX_N,
+          f"index tool entries {index['entries']}")
+    print(f"  index tool at {INDEX_N}: "
+          + ", ".join(f"{k} {index[k]}" for k in keys) + f"  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -3087,11 +3238,13 @@ def main() -> int:
     rec_sha1.launches += n["sha1_ragged_cuda"]
     rec_gear.launches += n["gear_candidates_cuda"]
     marks.append(time.monotonic())
+    phase_group_configs(dev, card)
+    marks.append(time.monotonic())
     idle = [r.name for r in records if not r.launches]
     check(not idle, f"kernels never launched on the main path: {idle}")
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-8, the daemons' build and corpus, phases 9-13: "
+          f"(phases 2-8, the daemons' build and corpus, phases 9-14: "
           + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)

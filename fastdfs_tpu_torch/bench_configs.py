@@ -1,4 +1,4 @@
-"""Benchmark configs 1-8 of the repository's root ``bench_configs.py``
+"""Benchmark configs 1-11 of the repository's root ``bench_configs.py``
 on the port.
 
 One JSON artifact per config, in ``--out`` (``bench_torch_out/`` at the
@@ -41,21 +41,34 @@ repository root by default):
      runs;
   8. the read path: cold and warm downloads at ``read_cache_mb`` 0 and
      64, every byte compared, and a ranged download in parallel 4
-     against a single stream; no kernel runs.
+     against a single stream; no kernel runs;
+  9. the slab-packed chunk store: unique 4 KB files ingested and read
+     back by ``fdfs_load`` with slab packing off and on (inode, files on
+     disk and open-fd counts), then 80% deleted and the slabs compacted
+     under byte-checked downloads; no kernel runs;
+ 10. multi-group scale-out: one open-loop zipfian download load offered
+     to one group and to three behind a placement-mode tracker, then
+     group3 drained by the rebalance migrator; no kernel runs;
+ 11. the RS(3, 2) erasure-coded cold tier: a two-member group demoted
+     from 2x replication to stripes, and m = 2 shards of every stripe
+     rebuilt from parity, unpaced and at 2 MB/s; no kernel runs (the
+     daemons code on their CPUs).
 
 Run from the repository root:
 
-    python -m fastdfs_tpu_torch.bench_configs --config 1|2|3|4|5|6|7|8
-        [--scale F] [--out DIR] [--device cuda|cpu]
+    python -m fastdfs_tpu_torch.bench_configs [--config 0|1|...|11]
+        [--scale F | --full] [--out DIR] [--device cuda|cpu]
 
-``--scale`` is the fraction of the nominal corpus size (``NOMINAL``)
-that the run builds (``DEFAULT_SCALE`` by default); the artifact records
-``scaled_bytes`` beside ``nominal_bytes``.  The rates in an artifact are
-the card's on a ``cuda`` run and null on a ``cpu`` run, which checks the
-same control flow on the plain twins; configs 1-3 and 6-8 keep the
-rates of their ``dedup_mode = cpu`` daemons, which are the host's own.
-The daemons and ``fdfs_load`` come from ``tests/torch_native.py`` (built
-with g++ when the checkout has none).
+``--config 0``, the default, runs every config in order.  ``--scale`` is
+the fraction of the nominal corpus size (``NOMINAL``) that the run
+builds (``DEFAULT_SCALE`` by default); ``--full`` runs the nominal size
+and overrides it.  The artifact records ``scaled_bytes`` beside
+``nominal_bytes``.  The rates in an artifact are the card's on a
+``cuda`` run and null on a ``cpu`` run, which checks the same control
+flow on the plain twins; configs 1-3 and 6-11 keep the rates of their
+daemons, which are the host's own.  The daemons and ``fdfs_load`` come
+from ``tests/torch_native.py`` (built with g++ when the checkout has
+none).
 
 The daemon fails open to flat files when its sidecar does not answer,
 so a sidecar leg counts only without restarts, errors, upload retries
@@ -64,7 +77,7 @@ or a watchdog re-exec, and with every byte fingerprinted
 when it does not.  Config 6 does the same on the card unless every
 upload launched each kernel as it should (``launch_faults``).
 ``--device cuda`` without a card raises before any daemon starts, and
-neither the sidecar nor the client falls back to the CPU.  Configs 9-14
+neither the sidecar nor the client falls back to the CPU.  Configs 12-14
 are not ported here.
 """
 
@@ -108,9 +121,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_OUT = os.path.join(REPO, "bench_torch_out")
 
 NOMINAL = {1: 1 << 30, 2: 10 << 30, 3: 50 << 30, 4: 100 << 30,
-           5: 500 << 30, 6: 10 << 30, 7: 10 << 30, 8: 10 << 30}
+           5: 500 << 30, 6: 10 << 30, 7: 10 << 30, 8: 10 << 30,
+           9: 100_000 * 4096, 10: 4 << 30, 11: 2 << 30}
 DEFAULT_SCALE = {1: 0.25, 2: 1 / 32.0, 3: 1 / 64.0, 4: 1 / 40.0,
-                 5: 1 / 2000.0, 6: 1 / 256.0, 7: 1 / 256.0, 8: 1 / 64.0}
+                 5: 1 / 2000.0, 6: 1 / 256.0, 7: 1 / 256.0, 8: 1 / 64.0,
+                 9: 0.1, 10: 1 / 64.0, 11: 1 / 256.0}
 
 BATCH = 256            # documents a streamed batch
 STREAM_DEPTH = 3       # batches in flight
@@ -121,6 +136,12 @@ C5_ITERATIONS = 16
 HB = "heart_beat_interval = 1\nstat_report_interval = 1"
 INGEST_WORKERS = 4     # config 2's client connections
 REPLICATION_WAIT_S = 300.0  # config 3's wait for every file's replica
+# Config 9's wait before it reads ``store.inodes_used`` after an ingest:
+# the daemon refreshes that gauge on its heartbeat (every second under
+# HB, on a whole-second clock), and an ingest of the smallest corpus
+# (200 files, ~0.2 s) ends between two beats.  The reference reads at
+# once, which its 10,000-file ingests outlast.
+INODE_GAUGE_S = 2.5
 SIDECAR_MAX_RSS_MB = 49152
 SIDECAR_START_S = 600  # a first start builds the kernels
 # What the sidecar's RSS watchdog prints before it re-execs the process.
@@ -177,16 +198,20 @@ def _upload_retry(cli, data, timeout=25.0, **kw):
 
 
 def _cluster(tmp, device, n_storages=1, dedup_mode="cpu", sidecar_sock="",
-             access_log=False):
-    """A tracker and ``n_storages`` storages of group1, and a client."""
+             access_log=False, keys="", first_ip=60):
+    """A tracker and ``n_storages`` storages of group1 (with ``keys``
+    added to their conf; two or more bind 127.0.0.``first_ip`` and up),
+    and a client."""
     native = _native()
     storaged, trackerd, _ = native.native_binaries()
-    extra = HB + ("\nuse_access_log = true" if access_log else "")
+    extra = (HB + ("\nuse_access_log = true" if access_log else "")
+             + ("\n" + keys if keys else ""))
     tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"))
     sts = []
     try:
         for i in range(n_storages):
-            ip = "127.0.0.1" if n_storages == 1 else f"127.0.0.{60 + i}"
+            ip = ("127.0.0.1" if n_storages == 1
+                  else f"127.0.0.{first_ip + i}")
             sts.append(native.start_storage(
                 storaged, os.path.join(tmp, f"st{i}"), ip=ip,
                 trackers=[f"127.0.0.1:{tr.port}"], dedup_mode=dedup_mode,
@@ -471,6 +496,26 @@ def _settled_saved(cli, idx=0, timeout=20.0):
         last = cur
         time.sleep(1.2)
     return last
+
+
+def _require(ok: bool, what) -> None:
+    """One of the reference's asserts, kept under ``python -O`` too."""
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def _run_load(load: str, *args: str) -> None:
+    """``fdfs_load`` with ``args``; raises with its stderr if it fails."""
+    out = subprocess.run([load, *args], capture_output=True, timeout=3600)
+    _require(out.returncode == 0, out.stderr.decode(errors="replace"))
+
+
+def _combine(load: str, *result_files: str) -> dict:
+    """``fdfs_load combine``: the summary of one or more result files."""
+    out = subprocess.run([load, "combine", *result_files],
+                         capture_output=True, timeout=600)
+    _require(out.returncode == 0, out.stderr.decode(errors="replace"))
+    return json.loads(out.stdout.decode())
 
 
 def _restart_storage(tmp: str, tr, sts: list, keys: str):
@@ -1535,23 +1580,606 @@ def config8(out_dir: str, scale: float, device: str = "cuda") -> dict:
     })
 
 
+def config9(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """Slab-packed chunk store: a small-file corpus (nominal 100k x 4 KB,
+    every payload unique) ingested and downloaded by ``fdfs_load`` with
+    slab packing off and on, with the filesystem's inode counts (the
+    ``store.inodes_used`` gauge and a files-on-disk walk) and the
+    daemon's open fds before and after.  Then a delete-heavy pass on the
+    packed store: 80% of the corpus deleted, a kicked scrub pass
+    compacts, and the artifact records the share of dead slab bytes
+    reclaimed and byte-identical downloads of a sub-corpus uploaded here
+    throughout the compaction window.
+
+    ``dedup_chunk_threshold`` is 1 KB, so 4 KB files take the chunked
+    path (recipe and content-addressed chunk) in both arms: the
+    comparison is the layout alone, a chunk file and a recipe file per
+    file against two slab records.  No kernel runs: the daemon dedups on
+    its CPU and ``fdfs_load`` is the client.
+    """
+    dev = resolve_device(device)
+    load = _native().load_binary()
+    file_bytes = 4096
+    n_files = max(int(NOMINAL[9] * scale) // file_bytes, 200)
+    threads = min(os.cpu_count() or 1, 4)
+
+    base_conf = ("dedup_chunk_threshold = 1K\nscrub_interval_s = 0"
+                 "\nchunk_gc_grace_s = 0")
+    arms = {
+        "flat": base_conf + "\nslab_chunk_threshold = 0"
+                          + "\nslab_recipe_threshold = 0",
+        "packed": base_conf + "\nslab_chunk_threshold = 64K"
+                            + "\nslab_recipe_threshold = 64K"
+                            + "\nslab_size_mb = 64"
+                            + "\nslab_compact_min_dead_pct = 25",
+    }
+
+    def files_on_disk(base):
+        return sum(len(files) for _root, _dirs, files
+                   in os.walk(os.path.join(base, "data")))
+
+    def gauges(st):
+        with StorageClient(st.ip, st.port, device=dev) as sc:
+            return sc.stat()["gauges"]
+
+    def write_ids(path, ids):
+        with open(path, "w") as fh:
+            fh.write("\n".join(ids) + "\n")
+
+    results = {}
+    delete_heavy = None
+    wrong_bytes = 0
+    for name, keys in arms.items():
+        tmp = tempfile.mkdtemp(prefix=f"fdfs_cfg9_{name}_")
+        tr, sts, cli = _cluster(tmp, dev, keys=keys)
+        st = sts[0]
+        base = os.path.join(tmp, "st0")
+        taddr = f"127.0.0.1:{tr.port}"
+        try:
+            _upload_retry(cli, b"warmup " * 64)
+            g0 = gauges(st)
+            files_before = files_on_disk(base)
+            up_res = os.path.join(tmp, "up.result")
+            t0 = time.perf_counter()
+            _run_load(load, "upload", taddr, "--small-files", str(n_files),
+                      "--file-bytes", str(file_bytes), str(threads), up_res)
+            ingest_wall = time.perf_counter() - t0
+            ingest = _combine(load, up_res)
+            _require(ingest["errors"] == 0, ingest)
+            time.sleep(INODE_GAUGE_S)
+            g1 = gauges(st)
+            files_after = files_on_disk(base)
+            fd_count = len(os.listdir(f"/proc/{st.proc.pid}/fd"))
+            dl_res = os.path.join(tmp, "down.result")
+            _run_load(load, "download", taddr, up_res + ".ids", str(n_files),
+                      str(threads), dl_res)
+            download = _combine(load, dl_res)
+            _require(download["errors"] == 0, download)
+            # A short body means lost bytes: every download must return
+            # exactly file_bytes.
+            _require(download["bytes"] == n_files * file_bytes, download)
+            results[name] = {
+                "ingest": ingest,
+                "ingest_wall_s": round(ingest_wall, 3),
+                "download": download,
+                "inodes_used_before": g0["store.inodes_used"],
+                "inodes_used_after": g1["store.inodes_used"],
+                "files_on_disk_before": files_before,
+                "files_on_disk_after": files_after,
+                "daemon_open_fds_after_ingest": fd_count,
+                "slab": {k.split(".", 1)[1]: g1[k] for k in g1
+                         if k.startswith("slab.")},
+            }
+
+            if name == "packed":
+                # The delete-heavy pass and compaction.  A sub-corpus
+                # checked here byte for byte pins byte-identity across
+                # the compaction window (fdfs_load checks only status
+                # and length).
+                rng = random.Random(9)
+                verified = {}
+                for _ in range(100):
+                    data = rng.randbytes(file_bytes)
+                    verified[cli.upload_buffer(data, ext="bin")] = data
+                with open(up_res + ".ids") as fh:
+                    ids = [ln.strip() for ln in fh if ln.strip()]
+                doomed = ids[:int(len(ids) * 0.8)]
+                doomed_path = os.path.join(tmp, "doomed.ids")
+                write_ids(doomed_path, doomed)
+                del_res = os.path.join(tmp, "del.result")
+                _run_load(load, "delete", taddr, doomed_path, str(threads),
+                          del_res)
+                deleted = _combine(load, del_res)
+                dead_before = gauges(st)["slab.bytes_dead"]
+                cli.scrub_kick(st.ip, st.port)
+                # Byte-identical downloads while the pass compacts.
+                deadline = time.perf_counter() + 120
+                during_checks = 0
+                while time.perf_counter() < deadline:
+                    for fid, data in list(verified.items())[:20]:
+                        if cli.download_to_buffer(fid) != data:
+                            wrong_bytes += 1
+                        during_checks += 1
+                    gc = gauges(st)
+                    if (gc["slab.compactions"] >= 1
+                            and gc["slab.bytes_dead"] <= dead_before * 0.2):
+                        break
+                    time.sleep(0.5)
+                gc = gauges(st)
+                for fid, data in verified.items():
+                    if cli.download_to_buffer(fid) != data:
+                        wrong_bytes += 1
+                # The surviving fifth of the fdfs_load corpus still
+                # serves in full.
+                kept = ids[int(len(ids) * 0.8):]
+                kept_path = os.path.join(tmp, "kept.ids")
+                write_ids(kept_path, kept)
+                dl2 = os.path.join(tmp, "down2.result")
+                _run_load(load, "download", taddr, kept_path, str(len(kept)),
+                          str(threads), dl2)
+                after_dl = _combine(load, dl2)
+                _require(after_dl["errors"] == 0, after_dl)
+                _require(after_dl["bytes"] == len(kept) * file_bytes,
+                         after_dl)
+                delete_heavy = {
+                    "deleted_files": len(doomed),
+                    "delete_errors": deleted["errors"],
+                    "dead_bytes_before_compaction": dead_before,
+                    "dead_bytes_after_compaction": gc["slab.bytes_dead"],
+                    "reclaim_pct": round(
+                        100.0 * (1 - gc["slab.bytes_dead"]
+                                 / max(dead_before, 1)), 2),
+                    "compactions": gc["slab.compactions"],
+                    "compacted_bytes": gc["slab.compacted_bytes"],
+                    "slab_files_after": gc["slab.files"],
+                    "byte_checks_during_compaction": during_checks,
+                    "survivor_download": after_dl,
+                }
+        finally:
+            cli.close()
+            _stop(tr, sts)
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    flat, packed = results["flat"], results["packed"]
+    flat_inodes = flat["inodes_used_after"] - flat["inodes_used_before"]
+    packed_inodes = packed["inodes_used_after"] - packed["inodes_used_before"]
+    flat_p50 = flat["ingest"]["lat_p50_us"]
+    packed_p50 = packed["ingest"]["lat_p50_us"]
+    return emit(out_dir, 9, {
+        "description": "slab-packed chunk store: small-file corpus "
+                       "(unique 4 KB files) ingested + downloaded with "
+                       "slab packing off vs on, inode/fd counts "
+                       "embedded, plus a delete-heavy pass with paced "
+                       "online compaction and byte-identical downloads "
+                       "throughout",
+        "nominal_bytes": NOMINAL[9],
+        "scaled_bytes": n_files * file_bytes,
+        "card": card_line() if dev.type == "cuda" else None,
+        "files": n_files,
+        "file_bytes": file_bytes,
+        "threads": threads,
+        "host_cpus": os.cpu_count() or 1,
+        "modes": results,
+        "inode_delta_flat": flat_inodes,
+        "inode_delta_packed": packed_inodes,
+        "files_on_disk_delta_flat": (flat["files_on_disk_after"]
+                                     - flat["files_on_disk_before"]),
+        "files_on_disk_delta_packed": (packed["files_on_disk_after"]
+                                       - packed["files_on_disk_before"]),
+        "inode_ratio": round(flat_inodes / max(packed_inodes, 1), 2),
+        "ingest_p50_packed_vs_flat": round(packed_p50 / max(flat_p50, 1), 3),
+        "delete_heavy": delete_heavy,
+        "wrong_bytes": wrong_bytes,
+        "inode_win_10x": flat_inodes >= 10 * max(packed_inodes, 1),
+        "ingest_p50_no_worse": packed_p50 <= flat_p50,
+        "compaction_reclaims_80pct": (delete_heavy is not None
+                                      and delete_heavy["reclaim_pct"]
+                                      >= 80.0),
+    })
+
+
+def config10(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """Multi-group scale-out: the same open-loop zipfian download load
+    offered to a one-group and a three-group cluster, the tracker in
+    placement mode (``store_lookup = 3``; the keyless preload
+    round-robins, so the corpus spreads evenly).  The offered rate is
+    calibrated once, 70% of the one-group arm's closed-loop QPS, and
+    replayed open-loop (``fdfs_load --open-loop --rate R``) against both
+    arms, so latency counts from the scheduled instant: an arm that
+    cannot absorb the rate shows its backlog in the percentiles instead
+    of throttling the generator.  A last phase drains group3 and clocks
+    the rebalance migrator emptying it: files and bytes moved, wall time
+    and the pace against its bandwidth budget.  The storages keep
+    ``dedup_mode = none``, as the reference's; no kernel runs.
+    """
+    dev = resolve_device(device)
+    native = _native()
+    storaged, trackerd, _ = native.native_binaries()
+    load = native.load_binary()
+    file_bytes = 64 * 1024
+    n_files = max(int(NOMINAL[10] * scale) // file_bytes, 60)
+    n_ops = n_files * 2
+    threads = min(os.cpu_count() or 1, 8)
+    zipf_s = 1.1
+
+    arms = {"one_group": ["group1"],
+            "three_groups": ["group1", "group2", "group3"]}
+    results = {}
+    offered_rate = 0.0
+    for name, groups in arms.items():
+        tmp = tempfile.mkdtemp(prefix=f"fdfs_cfg10_{name}_")
+        tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"),
+                                  store_lookup=3)
+        taddr = f"127.0.0.1:{tr.port}"
+        storages = []
+        cli = None
+        try:
+            for g in groups:
+                storages.append(native.start_storage(
+                    storaged, os.path.join(tmp, g), group=g,
+                    trackers=[taddr], extra=HB))
+            cli = FdfsClient([taddr], device=dev)
+            _upload_retry(cli, b"warmup " * 64)
+            up_res = os.path.join(tmp, "up.result")
+            _run_load(load, "upload", taddr, str(n_files), str(file_bytes),
+                      str(threads), up_res)
+            preload = _combine(load, up_res)
+            _require(preload["errors"] == 0, preload)
+            with open(up_res + ".ids") as fh:
+                ids = [ln.strip() for ln in fh if ln.strip()]
+            spread = {}
+            for fid in ids:
+                g = fid.split("/", 1)[0]
+                spread[g] = spread.get(g, 0) + 1
+            if name == "one_group":
+                # Calibrate the offered rate once, on the small arm's
+                # closed-loop capacity; both arms get the same rate.
+                cal_res = os.path.join(tmp, "cal.result")
+                _run_load(load, "download", taddr, up_res + ".ids",
+                          str(n_ops), str(threads), cal_res,
+                          "--zipf", str(zipf_s))
+                cal = _combine(load, cal_res)
+                _require(cal["errors"] == 0, cal)
+                offered_rate = max(round(cal["qps"] * 0.7, 1), 1.0)
+            dl_res = os.path.join(tmp, "down.result")
+            _run_load(load, "download", taddr, up_res + ".ids", str(n_ops),
+                      str(threads), dl_res, "--zipf", str(zipf_s),
+                      "--open-loop", "--rate", str(offered_rate))
+            open_dl = _combine(load, dl_res)
+            _require(open_dl["errors"] == 0, open_dl)
+            results[name] = {
+                "groups": len(groups),
+                "preload": preload,
+                "group_spread": spread,
+                "open_download": open_dl,
+            }
+            if name == "three_groups":
+                # Drain pace: retire one group and clock the migrator
+                # emptying it (budget: rebalance_bandwidth_mb_s, default
+                # 8; the wall also carries beat and retire latency, so
+                # the pace reads as a floor).
+                t0 = time.perf_counter()
+                cli.group_drain("group3")
+                deadline = t0 + 600
+                while time.perf_counter() < deadline:
+                    table = cli.query_placement()
+                    if any(g["group"] == "group3" and g["state"] == 2
+                           for g in table["groups"]):
+                        break
+                    time.sleep(0.5)
+                wall = time.perf_counter() - t0
+                cs = cli.cluster_stat("group3")
+                st = cs["groups"][0]["storages"][0]["stats"]
+                results[name]["drain"] = {
+                    "files_moved": st["rebalance_files_moved"],
+                    "bytes_moved": st["rebalance_bytes_moved"],
+                    "errors": st["rebalance_errors"],
+                    "done": st["rebalance_done"],
+                    "wall_s": round(wall, 2),
+                    "pace_mb_s": round(st["rebalance_bytes_moved"] / 1e6
+                                       / max(wall, 1e-9), 2),
+                    "bandwidth_budget_mb_s": 8,
+                }
+        finally:
+            if cli is not None:
+                cli.close()
+            _stop(tr, storages)
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    one, three = results["one_group"], results["three_groups"]
+    spread3 = three["group_spread"]
+    return emit(out_dir, 10, {
+        "description": "multi-group scale-out: identical open-loop "
+                       "zipfian download load (rate = 70% of the "
+                       "1-group closed-loop QPS) against 1 vs 3 groups "
+                       "under a placement-mode tracker; latency counts "
+                       "from the scheduled instant, so falling behind "
+                       "the offered rate shows up in the percentiles",
+        "nominal_bytes": NOMINAL[10],
+        "scaled_bytes": n_files * file_bytes,
+        "card": card_line() if dev.type == "cuda" else None,
+        "files": n_files,
+        "file_bytes": file_bytes,
+        "open_loop_ops": n_ops,
+        "threads": threads,
+        "zipf_s": zipf_s,
+        "offered_rate_qps": offered_rate,
+        "host_cpus": os.cpu_count() or 1,
+        "arms": results,
+        "p99_three_vs_one": round(
+            three["open_download"]["lat_p99_us"]
+            / max(one["open_download"]["lat_p99_us"], 1), 3),
+        "zero_errors": all(
+            r["preload"]["errors"] == 0 and r["open_download"]["errors"] == 0
+            for r in results.values()),
+        "three_group_spread_within_10pct": all(
+            abs(spread3.get(g, 0) / max(n_files, 1) - 1 / 3) <= 0.10
+            for g in ("group1", "group2", "group3")),
+        "open_loop_rate_met_3g": (
+            three["open_download"]["qps"] >= 0.85 * offered_rate),
+        "drain_relocated_all": (
+            three["drain"]["done"] == 1
+            and three["drain"]["errors"] == 0
+            and three["drain"]["files_moved"] >= spread3.get("group3", 0)),
+    })
+
+
+def _wait_for(cond, timeout=180):
+    """``cond()``'s first true value within ``timeout`` seconds, else its
+    value at the deadline."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(0.3)
+    return cond()
+
+
+def config11(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """Erasure-coded cold tier: what the RS(3, 2) tier saves and what it
+    costs.  A two-member group ingests an incompressible corpus under 2x
+    replication, then both members take an ``EC_KICK``: cold chunks
+    stripe into RS(3+2), and the verify-then-release handover drops the
+    replica copies.  Physical over logical bytes fall from ~2x to at
+    most (k+m)/k + 5% while downloads stay byte-identical; the EC
+    phase's p50/p99 prices the decode path beside the replicated one.  A
+    second, single-node phase measures reconstruction: every stripe
+    loses m = 2 shard files and a scrub pass rebuilds them from parity,
+    once unpaced (``ec_bandwidth_mb_s = 0``) and once against a 2 MB/s
+    budget, which the paced run must not exceed.
+
+    Physical bytes are the live payload inventory (flat chunk files,
+    live slab records, EC shard and manifest files): dead slab slots are
+    left out, since the compactor reclaims them later.  No kernel runs:
+    the daemons encode and rebuild on their CPUs.
+    """
+    dev = resolve_device(device)
+    scan = _native().harness  # the store scanners of tests/harness.py
+    file_bytes = 256 * 1024
+    n_files = max(int(NOMINAL[11] * scale) // file_bytes, 12)
+    ec_k, ec_m = 3, 2
+    pace_budget_mb_s = 2
+    ec_conf = ("scrub_interval_s = 0\nchunk_gc_grace_s = 1"
+               f"\nec_k = {ec_k}\nec_m = {ec_m}\nec_demote_age_s = 86400")
+
+    def physical_bytes(base):
+        total = sum(os.path.getsize(f) for f in scan.chunk_files(base))
+        total += sum(r["payload_len"] for r in scan.slab_records(base)
+                     if r["kind"] == 1 and not r["dead"])
+        for st in scan.stripe_files(base).values():
+            total += sum(os.path.getsize(p) for p in st["shards"].values())
+            total += os.path.getsize(st["manifest"])
+        return total
+
+    def timed_downloads(cli, fids, blobs, n_ops):
+        lats, wrong = [], 0
+        rnd = random.Random(11)
+        t0 = time.perf_counter()
+        for _ in range(n_ops):
+            fid = rnd.choice(fids)
+            s = time.perf_counter()
+            got = cli.download_to_buffer(fid)
+            lats.append((time.perf_counter() - s) * 1e6)
+            if got != blobs[fid]:
+                wrong += 1
+        wall = time.perf_counter() - t0
+        lats.sort()
+        return {"ops": n_ops, "wrong": wrong,
+                "qps": round(n_ops / max(wall, 1e-9), 1),
+                "lat_p50_us": round(lats[len(lats) // 2], 1),
+                "lat_p99_us": round(lats[min(len(lats) - 1,
+                                             int(len(lats) * 0.99))], 1)}
+
+    # -- phase 1: replicated, then EC, on a two-member group --------------
+    tmp = tempfile.mkdtemp(prefix="fdfs_cfg11_group_")
+    tr, storages, cli = _cluster(tmp, dev, n_storages=2, keys=ec_conf,
+                                 first_ip=80)
+    bases = [os.path.join(tmp, f"st{i}") for i in range(2)]
+    rnd = random.Random(16)
+    try:
+        blobs = {}
+        t0 = time.perf_counter()
+        for _ in range(n_files):
+            data = rnd.randbytes(file_bytes)
+            blobs[_upload_retry(cli, data, ext="bin")] = data
+        ingest_s = time.perf_counter() - t0
+        fids = list(blobs)
+        logical = n_files * file_bytes
+        # Replication done: both members hold every chunk payload.
+        _require(_wait_for(
+            lambda: all(scan.chunk_digests(b) for b in bases)
+            and len(scan.chunk_digests(bases[0]))
+            == len(scan.chunk_digests(bases[1]))),
+            "both members hold every chunk")
+        inv = set(scan.chunk_digests(bases[0]))
+        replicated_phys = sum(physical_bytes(b) for b in bases)
+        n_ops = min(len(fids) * 4, 200)
+        replicated_dl = timed_downloads(cli, fids, blobs, n_ops)
+
+        for s in storages:
+            cli.ec_kick(s.ip, s.port)
+
+        def demoted():
+            maps = [scan.chunk_digests(b) for b in bases]
+            stats = [cli.ec_status(s.ip, s.port) for s in storages]
+            if any(maps):
+                return None  # replicas or payloads still resident
+            if sum(st["demoted_chunks"] for st in stats) < len(inv):
+                return None
+            return stats
+        stats = _wait_for(demoted)
+        _require(stats, [cli.ec_status(s.ip, s.port) for s in storages])
+        ec_phys = sum(physical_bytes(b) for b in bases)
+        ec_dl = timed_downloads(cli, fids, blobs, n_ops)
+        group_result = {
+            "members": 2,
+            "files": n_files,
+            "logical_bytes": logical,
+            "ingest_mb_s": round(logical / 1e6 / max(ingest_s, 1e-9), 2),
+            "replicated_physical_bytes": replicated_phys,
+            "replicated_physical_over_logical": round(
+                replicated_phys / logical, 3),
+            "ec_physical_bytes": ec_phys,
+            "ec_physical_over_logical": round(ec_phys / logical, 3),
+            "released_chunks": sum(st["released_chunks"] for st in stats),
+            "remote_reads_after_dl": sum(
+                cli.ec_status(s.ip, s.port)["remote_reads"]
+                for s in storages),
+            "replicated_download": replicated_dl,
+            "ec_download": ec_dl,
+        }
+    finally:
+        cli.close()
+        _stop(tr, storages)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- phase 2: reconstruction MB/s, unpaced and paced ------------------
+    recon = {}
+    for arm, budget in (("unpaced", 0), ("paced", pace_budget_mb_s)):
+        tmp = tempfile.mkdtemp(prefix=f"fdfs_cfg11_{arm}_")
+        tr, sts, cli = _cluster(
+            tmp, dev, keys=ec_conf + f"\nec_bandwidth_mb_s = {budget}")
+        st = sts[0]
+        base = os.path.join(tmp, "st0")
+        try:
+            blobs = {}
+            for _ in range(n_files):
+                data = rnd.randbytes(file_bytes)
+                blobs[_upload_retry(cli, data, ext="bin")] = data
+            cli.ec_kick(st.ip, st.port)
+            # Demotion settles when every chunk payload has left the
+            # flat and slab tiers (the corpus spans several 4 MB stripe
+            # batches: "stripes >= 1" would catch it mid-demotion).
+            _require(_wait_for(
+                lambda: cli.ec_status(st.ip, st.port)["stripes"] >= 1
+                and not scan.chunk_digests(base)), "every chunk demoted")
+            # Kill m shards of every stripe, then clock one repair pass.
+            full = {sid: sorted(s["shards"])
+                    for sid, s in scan.stripe_files(base).items()}
+            for sid, idxs in full.items():
+                for idx in idxs[:ec_m]:
+                    os.unlink(scan.stripe_files(base)[sid]["shards"][idx])
+            before = cli.ec_status(st.ip, st.port)
+            passes0 = cli.scrub_status(st.ip, st.port)["passes"]
+            t0 = time.perf_counter()
+            cli.scrub_kick(st.ip, st.port)
+            # Clock the whole repair pass, not the first file back: the
+            # token bucket pays its debt after each stripe's shards are
+            # durable, so files alone would credit the paced arm with
+            # the unpaced rate.
+            _require(_wait_for(lambda: (
+                cli.scrub_status(st.ip, st.port)["passes"] > passes0
+                and all(sorted(s["shards"]) == full[sid]
+                        for sid, s in scan.stripe_files(base).items()))),
+                "every shard rebuilt")
+            wall = time.perf_counter() - t0
+            after = cli.ec_status(st.ip, st.port)
+            rebuilt = (after["reconstructed_bytes"]
+                       - before["reconstructed_bytes"])
+            wrong = sum(1 for fid, want in blobs.items()
+                        if cli.download_to_buffer(fid) != want)
+            recon[arm] = {
+                "bandwidth_budget_mb_s": budget,
+                "stripes": len(full),
+                "shards_rebuilt": (after["reconstructed_shards"]
+                                   - before["reconstructed_shards"]),
+                "rebuilt_bytes": rebuilt,
+                "wall_s": round(wall, 3),
+                "rebuild_mb_s": round(rebuilt / 1e6 / max(wall, 1e-9), 2),
+                "repair_fallback_chunks": after["repair_fallback_chunks"],
+                "wrong_bytes_after": wrong,
+            }
+        finally:
+            cli.close()
+            _stop(tr, sts)
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    ec_overhead_bound = (ec_k + ec_m) / ec_k * 1.05
+    replicated_dl = group_result["replicated_download"]
+    ec_dl = group_result["ec_download"]
+    return emit(out_dir, 11, {
+        "description": "erasure-coded cold tier: 2x-replicated corpus "
+                       "demoted into RS(3+2) stripes with group-wide "
+                       "replica release (physical/logical vs the "
+                       "replica multiple, download p50/p99 both ways), "
+                       "plus kill-m-shards reconstruction throughput "
+                       "paced vs unpaced",
+        "nominal_bytes": NOMINAL[11],
+        "scaled_bytes": n_files * file_bytes,
+        "card": card_line() if dev.type == "cuda" else None,
+        "file_bytes": file_bytes,
+        "ec_k": ec_k,
+        "ec_m": ec_m,
+        "host_cpus": os.cpu_count() or 1,
+        "group": group_result,
+        "reconstruction": recon,
+        "ec_overhead_bound": round(ec_overhead_bound, 3),
+        "efficiency_pass": (
+            group_result["ec_physical_over_logical"] <= ec_overhead_bound
+            and group_result["ec_physical_over_logical"]
+            < group_result["replicated_physical_over_logical"]),
+        "replication_near_2x": (
+            1.8 <= group_result["replicated_physical_over_logical"] <= 2.3),
+        "zero_wrong_bytes": (
+            replicated_dl["wrong"] == 0 and ec_dl["wrong"] == 0
+            and all(r["wrong_bytes_after"] == 0 for r in recon.values())),
+        "reconstruct_from_parity_only": all(
+            r["repair_fallback_chunks"] == 0 for r in recon.values()),
+        "paced_within_budget": (
+            recon["paced"]["rebuild_mb_s"]
+            <= pace_budget_mb_s * 1.25 + 0.5),
+        "pacing_effective": (
+            recon["unpaced"]["rebuild_mb_s"]
+            > recon["paced"]["rebuild_mb_s"]),
+        "ec_download_p99_vs_replicated": round(
+            ec_dl["lat_p99_us"] / max(replicated_dl["lat_p99_us"], 1), 3),
+    })
+
+
 CONFIGS = {1: config1, 2: config2, 3: config3, 4: config4, 5: config5,
-           6: config6, 7: config7, 8: config8}
+           6: config6, 7: config7, 8: config8, 9: config9, 10: config10,
+           11: config11}
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
-        description="configs 1-8 of bench_configs.py on the port")
-    ap.add_argument("--config", type=int, choices=sorted(CONFIGS),
-                    required=True)
+        description="configs 1-11 of bench_configs.py on the port "
+                    "(12-14 are not ported)")
+    ap.add_argument("--config", type=int, default=0,
+                    choices=[0, *sorted(CONFIGS)],
+                    help="which config (1-11); 0 = all, in order")
     ap.add_argument("--scale", type=float, default=None,
                     help="fraction of the nominal corpus size")
+    ap.add_argument("--full", action="store_true",
+                    help="run the nominal (BASELINE.json) sizes")
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    scale = (args.scale if args.scale is not None
-             else DEFAULT_SCALE[args.config])
-    CONFIGS[args.config](args.out, scale, args.device)
+    for c in [args.config] if args.config else sorted(CONFIGS):
+        scale = 1.0 if args.full else (
+            args.scale if args.scale is not None else DEFAULT_SCALE[c])
+        CONFIGS[c](args.out, scale, args.device)
 
 
 if __name__ == "__main__":

@@ -2,13 +2,17 @@
 against the reference's root ``bench_configs.py``: the same corpus and
 referee byte for byte, the same recall, classes, counts and agreement
 from config 4 on the CPU, and config 5's artifact shapes with eight CPU
-ranks; the sizes of configs 1-8, and each refusing ``cuda`` without a
-card (configs 1-3 and 6-8 before any daemon; their runs are in
-``tests/test_torch_bench_daemon.py`` and
-``tests/test_torch_bench_host.py``)."""
+ranks; the sizes of configs 1-11, each refusing ``cuda`` without a card
+(configs 1-3 and 6-11 before any daemon; their runs are in
+``tests/test_torch_bench_daemon.py``, ``tests/test_torch_bench_host.py``,
+``tests/test_torch_bench_slab.py`` and
+``tests/test_torch_bench_groups.py``), and ``main``'s choice of configs
+and scales against the reference's."""
 
+import functools
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -48,10 +52,48 @@ def test_textbook_minhash_is_the_references(n_docs, num_perms, shingle):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("config", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("config", range(1, 12))
 def test_sizes_are_the_references(config):
     assert bc.NOMINAL[config] == ref_bc.NOMINAL[config]
     assert bc.DEFAULT_SCALE[config] == ref_bc.DEFAULT_SCALE[config]
+
+
+def _record(calls, config, out_dir, scale, *device):
+    calls.append((config, scale))
+
+
+# Command lines and the (config, scale) calls the port's ``main`` makes
+# for them: ``--full`` runs the nominal size and beats ``--scale``, and
+# ``--config 0`` or none runs every config in order.
+ALL_DEFAULTS = [(c, bc.DEFAULT_SCALE[c]) for c in range(1, 12)]
+MAIN_CASES = [
+    (["--config", "4", "--full"], [(4, 1.0)]),
+    (["--config", "0"], ALL_DEFAULTS),
+    ([], ALL_DEFAULTS),
+    (["--full"], [(c, 1.0) for c in range(1, 12)]),
+    (["--config", "9", "--scale", "0.5", "--full"], [(9, 1.0)]),
+    (["--config", "0", "--scale", "0.125"],
+     [(c, 0.125) for c in range(1, 12)]),
+    (["--config", "11"], [(11, 1 / 256.0)]),
+]
+
+
+@pytest.mark.parametrize("argv,want", MAIN_CASES,
+                         ids=[" ".join(a) or "none" for a, _ in MAIN_CASES])
+def test_main_runs_what_the_references_runs(argv, want, monkeypatch):
+    """Each config the port's ``main`` calls, at the scale root ``main``
+    gives the same config on the same command line."""
+    port, ref = [], []
+    for c in bc.CONFIGS:
+        monkeypatch.setitem(bc.CONFIGS, c, functools.partial(_record, port, c))
+    for c in range(1, 15):
+        monkeypatch.setattr(ref_bc, f"config{c}",
+                            functools.partial(_record, ref, c))
+    monkeypatch.setattr(sys, "argv", ["bench_configs.py", *argv])
+    ref_bc.main()
+    bc.main(argv)
+    assert port == want
+    assert port == [(c, s) for c, s in ref if c in bc.CONFIGS]
 
 
 def test_default_out_is_ignored_and_not_the_references():
@@ -61,7 +103,7 @@ def test_default_out_is_ignored_and_not_the_references():
         assert "bench_torch_out/" in fh.read().split()
 
 
-@pytest.mark.parametrize("config", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("config", range(1, 12))
 def test_configs_refuse_cuda_without_a_card(config, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
