@@ -201,13 +201,34 @@ before the last line):
    verdicts (packed ingest p50 no worse, the offered rate met by three
    groups, the paced rebuild within its budget and slower than the
    unpaced) are printed beside their readings, not checked.
+15. Configs 12, 13 and 14 of ``bench_configs``, the read path, in this
+   process: config 12 at 1/65536 (24 files of 256 KB; one open-loop
+   download load on a 1-reactor and a 4-reactor storage, 64 held
+   sockets, the port's ranged downloader and a mid-load flamegraph of
+   each arm by ``python -m fastdfs_tpu_torch.cli --device cuda
+   profile``), config 13 at its default 1/128 (12 files of 1 MB; a
+   priority-mixed load at 1.7x capacity with admission off and on, and
+   at half capacity) and config 14 at 1/65536 (12 files of 8 KB; a
+   90%-hot read mix on three groups with the hot-map policy off and
+   on, read by the port's ``FdfsClient``).  Each run, counted, launches
+   no kernel and calls no plain twin on the card.  Config 12 must see
+   no error and no wrong byte, no ranged fallback on either arm, the
+   connection budget honoured, more vectored-read spans than batches,
+   the held sockets spread within 2x of the mean and both folded
+   stack files written with samples; config 13 must see no error but
+   sheds and never shed an interactive read; config 14 must publish the
+   promotion, route reads through it and see no read error.  Their
+   timing verdicts (config 12's p99 ratios, config 13's shed and
+   collapse verdicts, config 14's spreads and hot p99s) are printed
+   beside their readings, not checked.
 
 The kernels' launch counts are those of the main-path runs in phases 3,
 4, 5, 6, 7, 8, 9, 10, 11 and 13 (each counted from 0 just before its
 run; the general-width kernel's two forms from the runs at shingle 4;
 phase 12's sidecar launches in a process of its own and is not counted;
 phase 13's are config 6's run on the card, its warm-up fingerprint
-included; phase 14's runs are counted too and must launch none);
+included; the runs of phases 14 and 15 are counted too and must launch
+none);
 launches made only to time or compare a kernel are not counted.  Those
 runs must call no plain twin on a CUDA tensor (the ``cuda_calls`` of
 ``gear_window``, ``index_best``, ``rs_code.gf_matmul_torch``,
@@ -3137,6 +3158,116 @@ def phase_group_configs(dev, card: str) -> None:
           + ", ".join(f"{k} {index[k]}" for k in keys) + f"  [{card}]")
 
 
+# Phase 15: configs 12, 13 and 14 of bench_configs.py, the read path;
+# none launches a kernel.
+C12_SCALE = 1 / 65536                  # config 12 here: 24 files of 256 KB
+C13_SCALE = 1 / 128                    # config 13's default: 12 files of 1 MB
+C14_SCALE = 1 / 65536                  # config 14 here: 12 files of 8 KB
+
+
+def phase_serving_configs(dev, card: str) -> None:
+    """Phase 15: each run counted, none may launch a kernel."""
+    print(f"phase 15: bench_configs configs 12 at {C12_SCALE}, 13 at "
+          f"{C13_SCALE} and 14 at {C14_SCALE} (no kernel)")
+    with tempfile.TemporaryDirectory(prefix="fdfs15") as out_dir:
+        art12, n12 = counted(lambda: bench_configs.config12(
+            out_dir, C12_SCALE, dev.type))
+        folded = {name: os.path.isfile(os.path.join(
+            out_dir, arm["flamegraph"]["folded_file"]))
+            for name, arm in art12["arms"].items()}
+        art13, n13 = counted(lambda: bench_configs.config13(
+            out_dir, C13_SCALE, dev.type))
+        art14, n14 = counted(lambda: bench_configs.config14(
+            out_dir, C14_SCALE, dev.type))
+    check(n12 == n13 == n14 == {},
+          f"configs 12, 13 and 14 launched kernels: {n12}, {n13}, {n14}")
+    check(art12["card"] == art13["card"] == art14["card"] == card,
+          f"card lines {art12['card']}, {art13['card']}, {art14['card']}")
+
+    arms = art12["arms"]
+    fallbacks = {n: a["ranged_verify"]["ranged_fallbacks"]
+                 for n, a in arms.items()}
+    samples = {n: a["flamegraph"]["samples"] for n, a in arms.items()}
+    check(art12["files"] == 24 and art12["zero_errors"] is True
+          and art12["wrong_bytes"] == 0
+          and fallbacks == {"reactors1": 0, "reactors4": 0}
+          and art12["conn_budget_honored"] is True
+          and art12["preadv_spans_exceed_batches"] is True
+          and art12["accept_spread_within_2x"] is True
+          and all(folded.values()) and len(folded) == 2
+          and all(v > 0 for v in samples.values()),
+          f"config 12: files {art12['files']}, zero errors "
+          f"{art12['zero_errors']}, wrong bytes {art12['wrong_bytes']}, "
+          f"ranged fallbacks {fallbacks}, budget "
+          f"{art12['conn_budget_honored']}, preadv "
+          f"{art12['preadv_spans_exceed_batches']}, spread "
+          f"{art12['accept_spread_within_2x']}, folded files {folded}, "
+          f"samples {samples}")
+    for name, arm in arms.items():
+        for client, sweep in arm["clients"].items():
+            cells = "; ".join(
+                f"{c['offered_rate_qps']} offered, {c['qps']} qps, p50/p99 "
+                f"{c['lat_p50_us']}/{c['lat_p99_us']} us" for c in sweep)
+            print(f"  config 12 {name} {client}: {cells}  [{card}]")
+        flame = arm["flamegraph"]
+        print(f"  config 12 {name}: {flame['samples']} samples in "
+              f"{flame['stacks']} stacks; {flame['capture_note']}; "
+              f"conns per reactor "
+              f"{arm['accept_burst']['conns_per_reactor']}; preadv "
+              f"{arm['preadv']['spans_per_batch']} spans a batch  [{card}]")
+    print(f"  config 12: p99 multiplexed / single at 4 reactors "
+          f"{art12['p99_multiplexed_vs_single_4r']}, p99 4 / 1 reactors "
+          f"multiplexed {art12['p99_4r_vs_1r_multiplexed']}  [{card}]")
+
+    adm = art13["arms"]["admission"]
+    check(art13["files"] == 12 and art13["zero_non_shed_errors"] is True
+          and art13["interactive_never_shed"] is True,
+          f"config 13: files {art13['files']}, zero non-shed errors "
+          f"{art13['zero_non_shed_errors']}, interactive never shed "
+          f"{art13['interactive_never_shed']}")
+    cal = art13["arms"]["baseline"]["calibration"]
+    print(f"  config 13: capacity {art13['capacity_qps']} qps (p50/p99 "
+          f"{cal['lat_p50_us']}/{cal['lat_p99_us']} us), SLO thresholds "
+          f"{art13['slo_request_p99_threshold_ms']} ms request p99, "
+          f"{art13['slo_loop_lag_threshold_ms']} ms loop lag; offered "
+          f"{art13['offered_rates_qps']}  [{card}]")
+    for name, c in (("baseline overload",
+                     art13["arms"]["baseline"]["overload"]),
+                    ("admission half", adm["half"]),
+                    ("admission overload", adm["overload"])):
+        print(f"  config 13 {name}: {c['qps']} qps, goodput "
+              f"{c['goodput_qps']}, shed {c['shed']}, p50/p99 "
+              f"{c['lat_p50_us']}/{c['lat_p99_us']} us  [{card}]")
+    print("  config 13: " + ", ".join(
+        f"{k} {art13[k]}" for k in (
+            "zero_sheds_at_half_capacity", "sheds_under_overload",
+            "ladder_engaged", "shed_prefers_background",
+            "p99_collapse_ratio", "admitted_p99_bounded_vs_baseline"))
+        + f"  [{card}]")
+
+    check(art14["files"] == 12 and art14["hot_promotion_published"] is True
+          and art14["routed_reads_flowed"] is True
+          and art14["zero_read_errors"] is True,
+          f"config 14: files {art14['files']}, published "
+          f"{art14['hot_promotion_published']}, routed "
+          f"{art14['routed_reads_flowed']}, zero read errors "
+          f"{art14['zero_read_errors']}")
+    for name, arm in art14["arms"].items():
+        m = arm["measured"]
+        print(f"  config 14 {name}: capacity "
+              f"{arm['closed_loop_capacity_qps']} qps, open-loop {m['qps']} "
+              f"of {arm['offered_rate_qps']} offered, p50/p99 "
+              f"{m['lat_p50_us']}/{m['lat_p99_us']} us; group shares "
+              f"{arm['group_read_shares']}; routed reads "
+              f"{arm['hot_route_reads']}  [{card}]")
+    print("  config 14: " + ", ".join(
+        f"{k} {art14[k]}" for k in (
+            "off_group_spread_pp", "on_group_spread_pp",
+            "post_promotion_spread_within_10pp", "hot_p99_off_us",
+            "hot_p99_on_us", "hot_p99_flatter_with_promotion"))
+        + f"  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke runs only "
@@ -3240,11 +3371,13 @@ def main() -> int:
     marks.append(time.monotonic())
     phase_group_configs(dev, card)
     marks.append(time.monotonic())
+    phase_serving_configs(dev, card)
+    marks.append(time.monotonic())
     idle = [r.name for r in records if not r.launches]
     check(not idle, f"kernels never launched on the main path: {idle}")
 
     print(f"chip_smoke finished in {time.monotonic() - t_start:.1f} s "
-          f"(phases 2-8, the daemons' build and corpus, phases 9-14: "
+          f"(phases 2-8, the daemons' build and corpus, phases 9-15: "
           + ", ".join(
               f"{b - a:.1f}" for a, b in zip(marks, marks[1:])) + " s)")
     print(card)

@@ -1,4 +1,4 @@
-"""Benchmark configs 1-11 of the repository's root ``bench_configs.py``
+"""Benchmark configs 1-14 of the repository's root ``bench_configs.py``
 on the port.
 
 One JSON artifact per config, in ``--out`` (``bench_torch_out/`` at the
@@ -52,11 +52,24 @@ repository root by default):
  11. the RS(3, 2) erasure-coded cold tier: a two-member group demoted
      from 2x replication to stripes, and m = 2 shards of every stripe
      rebuilt from parity, unpaced and at 2 MB/s; no kernel runs (the
-     daemons code on their CPUs).
+     daemons code on their CPUs);
+ 12. the serving edge: one open-loop download load offered to a
+     1-reactor and a 4-reactor storage, through one client connection
+     and through a pool, with the accept spread, the vectored-read
+     coalescing, byte identity through the port's ranged downloader and
+     a flamegraph of each arm taken mid-load by the port's CLI; no
+     kernel runs;
+ 13. SLO-driven admission control: one priority-mixed open-loop
+     download load at 1.7x the calibrated capacity against a storage
+     with admission off and one with it on, plus a half-capacity leg;
+     no kernel runs;
+ 14. heat-driven hot replication: a 90%-hot read mix against three
+     groups with the tracker's hot-map policy off and on, read through
+     the port's client and its hot routing; no kernel runs.
 
 Run from the repository root:
 
-    python -m fastdfs_tpu_torch.bench_configs [--config 0|1|...|11]
+    python -m fastdfs_tpu_torch.bench_configs [--config 0|1|...|14]
         [--scale F | --full] [--out DIR] [--device cuda|cpu]
 
 ``--config 0``, the default, runs every config in order.  ``--scale`` is
@@ -77,8 +90,7 @@ or a watchdog re-exec, and with every byte fingerprinted
 when it does not.  Config 6 does the same on the card unless every
 upload launched each kernel as it should (``launch_faults``).
 ``--device cuda`` without a card raises before any daemon starts, and
-neither the sidecar nor the client falls back to the CPU.  Configs 12-14
-are not ported here.
+neither the sidecar nor the client falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -107,6 +119,7 @@ import torch
 from fastdfs_tpu_torch.client import (FdfsClient, StorageClient,
                                       fingerprint_buffer)
 from fastdfs_tpu_torch.dedup.index import MinHashLSHIndex
+from fastdfs_tpu_torch.monitor import hist_quantile
 from fastdfs_tpu_torch.ops import resolve_device
 from fastdfs_tpu_torch.ops.cuda_gear import gear_candidates_cuda
 from fastdfs_tpu_torch.ops.cuda_minhash import minhash_batch_cuda
@@ -122,10 +135,12 @@ DEFAULT_OUT = os.path.join(REPO, "bench_torch_out")
 
 NOMINAL = {1: 1 << 30, 2: 10 << 30, 3: 50 << 30, 4: 100 << 30,
            5: 500 << 30, 6: 10 << 30, 7: 10 << 30, 8: 10 << 30,
-           9: 100_000 * 4096, 10: 4 << 30, 11: 2 << 30}
+           9: 100_000 * 4096, 10: 4 << 30, 11: 2 << 30, 12: 2 << 30,
+           13: 1 << 30, 14: 2 << 30}
 DEFAULT_SCALE = {1: 0.25, 2: 1 / 32.0, 3: 1 / 64.0, 4: 1 / 40.0,
                  5: 1 / 2000.0, 6: 1 / 256.0, 7: 1 / 256.0, 8: 1 / 64.0,
-                 9: 0.1, 10: 1 / 64.0, 11: 1 / 256.0}
+                 9: 0.1, 10: 1 / 64.0, 11: 1 / 256.0, 12: 1 / 128.0,
+                 13: 1 / 128.0, 14: 1 / 64.0}
 
 BATCH = 256            # documents a streamed batch
 STREAM_DEPTH = 3       # batches in flight
@@ -504,10 +519,17 @@ def _require(ok: bool, what) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def _run_load(load: str, *args: str) -> None:
-    """``fdfs_load`` with ``args``; raises with its stderr if it fails."""
+def _run_load(load: str, *args: str) -> dict | None:
+    """``fdfs_load`` with ``args``; raises with its stderr if it fails.
+    Returns its pool-stats line, the ``{"conns_budget": ...}`` JSON that
+    it prints on stdout after its workers join, or None without one."""
     out = subprocess.run([load, *args], capture_output=True, timeout=3600)
     _require(out.returncode == 0, out.stderr.decode(errors="replace"))
+    conns = None
+    for line in out.stdout.decode(errors="replace").splitlines():
+        if line.startswith('{"conns_budget"'):
+            conns = json.loads(line)
+    return conns
 
 
 def _combine(load: str, *result_files: str) -> dict:
@@ -2157,18 +2179,837 @@ def config11(out_dir: str, scale: float, device: str = "cuda") -> dict:
     })
 
 
+def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """Serving-edge concurrency: the same open-loop download load offered
+    to a 1-reactor and a 4-reactor storage (SO_REUSEPORT sharded
+    accept), each driven through one shared storage connection
+    (``fdfs_load --conns 1``) and through a pool (``--conns
+    <threads>``).  The offered rates are calibrated once, 40% and 70% of
+    the 1-reactor arm's closed-loop QPS, and replayed open-loop against
+    every (reactors x client) cell, so schedule lateness lands in the
+    percentiles.  The corpus is 256 KB files in 4 KB chunks with the
+    read cache off, so every download walks the cold recipe path and
+    the vectored read batcher must show ``dio.preadv_spans`` above
+    ``dio.preadv_batches``.  Beside the latency table each arm records:
+    64 held sockets against the per-reactor ``nio.conns.<i>`` gauges
+    (every reactor within 2x of the mean, none idle); ``fdfs_load``'s
+    pool evidence (``conns_peak`` 1 under ``--conns 1``); a byte-identity
+    sweep through the port's parallel ranged downloader under a 2-conn
+    endpoint cap (no wrong byte, no single-stream fallback); and a
+    flamegraph, ``python -m fastdfs_tpu_torch.cli --device <device>
+    profile``'s folded stacks captured mid-load, written next to the
+    artifact as ``config12_reactors{1,4}.folded`` with the live conns
+    per reactor sampled in the capture window.  No kernel runs: the
+    storage dedups on its CPU and ``fdfs_load`` is the client.
+    """
+    dev = resolve_device(device)
+    native = _native()
+    storaged, trackerd, _ = native.native_binaries()
+    load = native.load_binary()
+    file_bytes = 256 * 1024
+    n_files = max(int(NOMINAL[12] * scale) // file_bytes, 24)
+    n_ops = n_files * 4
+    # Load workers are blocking network clients, not CPU burners: at
+    # least 4 even on a small host, or the pooled arm (--conns
+    # <threads>) degenerates into the single-conn arm.
+    threads = min(max(os.cpu_count() or 1, 4), 8)
+    reactors_hi = 4
+    burst_conns = 64
+    profile_hz = 97
+    profile_seconds = 3
+    daemon_conf = (HB
+                   + "\ndedup_chunk_threshold = 4K"   # 256 KB: ~64 chunks
+                   + "\nread_cache_mb = 0"            # the cold path
+                   + "\nprofile_max_hz = 200")
+
+    def daemon_stat(st):
+        with StorageClient(st.ip, st.port, device=dev) as sc:
+            return sc.stat()
+
+    def reactor_family(gauges, prefix):
+        # nio.conns.0, nio.conns.1, ... -> {0: v0, 1: v1, ...}
+        out = {}
+        for name, v in gauges.items():
+            if name.startswith(prefix) and name[len(prefix):].isdigit():
+                out[int(name[len(prefix):])] = v
+        return out
+
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    rates: list[float] = []
+    budget_ok = True
+    wrong_bytes = 0
+    for reactors in (1, reactors_hi):
+        arm = f"reactors{reactors}"
+        tmp = tempfile.mkdtemp(prefix=f"fdfs_cfg12_{arm}_")
+        tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"))
+        taddr = f"127.0.0.1:{tr.port}"
+        sts = []
+        cli = None
+        try:
+            st = native.start_storage(
+                storaged, os.path.join(tmp, "st"), trackers=[taddr],
+                dedup_mode="cpu",
+                extra=daemon_conf + f"\nwork_threads = {reactors}")
+            sts.append(st)
+            cli = FdfsClient([taddr], device=dev)
+            _upload_retry(cli, b"warmup " * 64)
+            up_res = os.path.join(tmp, "up.result")
+            _run_load(load, "upload", taddr, str(n_files), str(file_bytes),
+                      str(threads), up_res)
+            preload = _combine(load, up_res)
+            _require(preload["errors"] == 0, preload)
+            ids_path = up_res + ".ids"
+            if not rates:
+                # Calibrate once, on the 1-reactor arm's closed-loop
+                # capacity; every cell then replays the same rates.
+                cal_res = os.path.join(tmp, "cal.result")
+                _run_load(load, "download", taddr, ids_path, str(n_ops),
+                          str(threads), cal_res)
+                cal = _combine(load, cal_res)
+                _require(cal["errors"] == 0, cal)
+                rates = [max(round(cal["qps"] * f, 1), 1.0)
+                         for f in (0.4, 0.7)]
+            clients = {}
+            for client_name, budget in (("single_conn", 1),
+                                        ("multiplexed", threads)):
+                sweep = []
+                for rate in rates:
+                    res = os.path.join(tmp, f"{client_name}_{rate}.result")
+                    conns = _run_load(load, "download", taddr, ids_path,
+                                      str(n_ops), str(threads), res,
+                                      "--conns", str(budget),
+                                      "--open-loop", "--rate", str(rate))
+                    agg = _combine(load, res)
+                    _require(agg["errors"] == 0, agg)
+                    # --conns 1 serializes the storage edge: the pool
+                    # must never open a second conn, whatever the rate.
+                    budget_ok = budget_ok and (
+                        conns is not None
+                        and conns["conns_budget"] == budget
+                        and conns["conns_peak"] <= budget
+                        and (budget != 1 or conns["conns_peak"] == 1))
+                    sweep.append({"offered_rate_qps": rate,
+                                  "qps": agg["qps"],
+                                  "lat_p50_us": agg["lat_p50_us"],
+                                  "lat_p99_us": agg["lat_p99_us"],
+                                  "errors": agg["errors"],
+                                  "pool": conns})
+                clients[client_name] = sweep
+
+            # Byte identity through the pooled ranged client: the
+            # parallel downloader under a 2-conn endpoint cap must give
+            # exactly the single-stream bytes, with no single-stream
+            # fallback (the cap waits, it never breaks the ranged plan).
+            ver = FdfsClient([taddr], parallel_downloads=4,
+                             download_range_bytes=64 * 1024,
+                             max_conns_per_endpoint=2, device=dev)
+            with open(ids_path) as fh:
+                ids = [ln.strip() for ln in fh if ln.strip()]
+            arm_wrong = 0
+            for fid in ids[:min(len(ids), 24)]:
+                base = cli.download_to_buffer(fid)
+                if (len(base) != file_bytes
+                        or ver.download_to_buffer(fid) != base):
+                    arm_wrong += 1
+            ranged_fallbacks = ver.stats()["ranged_fallback_single"]
+            ver.close()
+            wrong_bytes += arm_wrong
+
+            # Accept-spread probe: hold a burst of raw sockets and read
+            # the per-reactor live-conn gauges.  With SO_REUSEPORT the
+            # kernel hashes the 4-tuple, so "within 2x of the mean and
+            # no reactor idle" is the fair-spread bar.
+            probes = [socket.create_connection((st.ip, st.port), timeout=10)
+                      for _ in range(burst_conns)]
+            try:
+                time.sleep(0.5)  # fallback-mode adoption is a Post
+                g = daemon_stat(st)["gauges"]
+            finally:
+                for s in probes:
+                    s.close()
+            conns_per = reactor_family(g, "nio.conns.")
+            accepts_per = reactor_family(g, "nio.accepts.")
+            vals = list(conns_per.values())
+            mean = sum(vals) / max(len(vals), 1)
+            spread_ok = (len(vals) == reactors
+                         and all(v > 0 for v in vals)
+                         and max(vals) <= 2 * mean)
+
+            # Flamegraph: arm the in-daemon sampler through the port's
+            # CLI while an open-loop run is in flight, and sample the
+            # live conns per reactor inside the capture window.
+            flame_rate = rates[-1]
+            flame_ops = max(int(flame_rate * 8), n_ops)
+            bg = subprocess.Popen(
+                [load, "download", taddr, ids_path, str(flame_ops),
+                 str(threads), os.path.join(tmp, "flame.result"),
+                 "--conns", str(threads),
+                 "--open-loop", "--rate", str(flame_rate)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            try:
+                time.sleep(0.5)
+                env = dict(os.environ)
+                env["PYTHONPATH"] = (REPO + os.pathsep
+                                     + env.get("PYTHONPATH", ""))
+                t0 = time.perf_counter()
+                prof = subprocess.run(
+                    [sys.executable, "-m", "fastdfs_tpu_torch.cli",
+                     "--device", dev.type, "profile",
+                     taddr, f"{st.ip}:{st.port}",
+                     "--hz", str(profile_hz),
+                     "--seconds", str(profile_seconds)],
+                    capture_output=True, timeout=120, env=env)
+                prof_wall = time.perf_counter() - t0
+                # The open-loop schedule keeps the load alive past the
+                # capture deadline, so this sample still sees it.
+                disp = reactor_family(daemon_stat(st)["gauges"],
+                                      "nio.conns.")
+            finally:
+                bg.wait(timeout=600)
+            _require(bg.returncode == 0,
+                     f"the flamegraph's load exited {bg.returncode}")
+            _require(prof.returncode == 0,
+                     prof.stderr.decode(errors="replace"))
+            folded = prof.stdout.decode()
+            flame_name = f"config12_{arm}.folded"
+            with open(os.path.join(out_dir, flame_name), "w") as fh:
+                fh.write(folded)
+            samples = sum(int(ln.rsplit(" ", 1)[1])
+                          for ln in folded.splitlines() if " " in ln)
+            print(f"config 12 {arm}: the profile CLI took {prof_wall:.2f} s "
+                  f"for a {profile_seconds} s capture at {profile_hz} Hz, "
+                  f"{samples} samples; live conns per reactor {disp}",
+                  flush=True)
+
+            ctr = daemon_stat(st)["counters"]
+            results[arm] = {
+                "reactors": reactors,
+                "reuseport_active": g.get("nio.reuseport_active", 0),
+                "preload": preload,
+                "clients": clients,
+                "ranged_verify": {
+                    "files": min(len(ids), 24),
+                    "wrong": arm_wrong,
+                    "ranged_fallbacks": ranged_fallbacks,
+                },
+                "accept_burst": {
+                    "held_sockets": burst_conns,
+                    "conns_per_reactor": conns_per,
+                    "accepts_per_reactor": accepts_per,
+                    "spread_within_2x": spread_ok,
+                },
+                "preadv": {
+                    "batches": ctr.get("dio.preadv_batches", 0),
+                    "spans": ctr.get("dio.preadv_spans", 0),
+                    "spans_per_batch": round(
+                        ctr.get("dio.preadv_spans", 0)
+                        / max(ctr.get("dio.preadv_batches", 0), 1), 2),
+                },
+                "flamegraph": {
+                    "folded_file": flame_name,
+                    "hz": profile_hz,
+                    "seconds": profile_seconds,
+                    "samples": samples,
+                    "stacks": len(folded.splitlines()),
+                    "capture_note": (
+                        f"captured mid-load at {flame_rate} q/s "
+                        f"(--conns {threads}); live conns per reactor "
+                        f"sampled inside the window: {disp}"),
+                },
+            }
+        finally:
+            if cli is not None:
+                cli.close()
+            _stop(tr, sts)
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    hi = results[f"reactors{reactors_hi}"]
+    lo = results["reactors1"]
+    top = len(rates) - 1
+    return emit(out_dir, 12, {
+        "description": "serving-edge concurrency: open-loop download "
+                       "p99 vs offered rate (40%/70% of the 1-reactor "
+                       "closed-loop QPS) across 1 vs 4 accept reactors "
+                       "and single vs multiplexed client connections, "
+                       "with accept-spread, preadv-coalescing, "
+                       "byte-identity, and mid-load flamegraph "
+                       "evidence per arm",
+        "nominal_bytes": NOMINAL[12],
+        "scaled_bytes": n_files * file_bytes,
+        "card": card_line() if dev.type == "cuda" else None,
+        "files": n_files,
+        "file_bytes": file_bytes,
+        "open_loop_ops": n_ops,
+        "threads": threads,
+        "host_cpus": os.cpu_count() or 1,
+        "offered_rates_qps": rates,
+        "arms": results,
+        "zero_errors": all(
+            cell["errors"] == 0
+            for r in results.values()
+            for sweep in r["clients"].values()
+            for cell in sweep),
+        "wrong_bytes": wrong_bytes,
+        "conn_budget_honored": budget_ok,
+        "accept_spread_within_2x": hi["accept_burst"]["spread_within_2x"],
+        "preadv_spans_exceed_batches": all(
+            r["preadv"]["spans"] > r["preadv"]["batches"] > 0
+            for r in results.values()),
+        "p99_multiplexed_vs_single_4r": round(
+            hi["clients"]["multiplexed"][top]["lat_p99_us"]
+            / max(hi["clients"]["single_conn"][top]["lat_p99_us"], 1), 3),
+        "p99_4r_vs_1r_multiplexed": round(
+            hi["clients"]["multiplexed"][top]["lat_p99_us"]
+            / max(lo["clients"]["multiplexed"][top]["lat_p99_us"], 1), 3),
+    })
+
+
+def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """SLO-driven admission control: the same open-loop download mix
+    (interactive, normal and background through ``--priority-mix``)
+    offered at 1.7x the calibrated closed-loop capacity to a baseline
+    storage (``admission_control = 0``) and to one with admission on,
+    whose ``request_p99_ms`` SLO threshold is half the server-side
+    saturation p99 (read off the daemon's own
+    ``op.download_file.latency_us`` histogram after the closed-loop
+    calibration; the client's number includes tracker RPCs and schedule
+    lateness that the SLO never sees).  The corpus is 1 MB files in 4 KB
+    chunks with the read cache off, so each download is ~256 cold chunk
+    reads and the storage, not the driver, is the bottleneck defended.
+    Open-loop latency counts from the scheduled instant, so when the
+    baseline falls behind the offered rate the backlog lands in its
+    percentiles: the collapse that the ladder exists to prevent.  The
+    artifact records no shed at half capacity on the admission arm;
+    under overload, sheds that never touch the interactive class and
+    prefer background to normal; per-class admitted-only percentiles
+    from ``fdfs_load combine``; admitted goodput beside the baseline's;
+    the ladder's lifetime gauges; and the p99 collapse ratio (baseline
+    overall p99 over the admission arm's interactive p99 at the same
+    offered rate).  No kernel runs: the storage dedups on its CPU and
+    ``fdfs_load`` is the client.
+    """
+    dev = resolve_device(device)
+    native = _native()
+    storaged, trackerd, _ = native.native_binaries()
+    load = native.load_binary()
+    file_bytes = 1 << 20
+    n_files = max(int(NOMINAL[13] * scale) // file_bytes, 12)
+    # Enough blocking load workers that the saturated closed-loop p99
+    # (queueing across the in-flight cap) sits well above the light-load
+    # p99: the band the SLO threshold is planted in.
+    threads = 16
+    overload_factor = 1.7
+    half_factor = 0.5
+    overload_seconds = 15
+    half_seconds = 6
+    mix = "interactive:1:0.4,normal:2:0.3,background:4:0.3"
+    # 4 KB-chunked cold reads (cache off) keep per-op service real, and
+    # one reactor keeps the capacity low enough to overload from a
+    # single driver; 1 s SLO and metrics ticks let the ladder move a
+    # rung a second instead of every five.
+    base_conf = (HB
+                 + "\nslo_eval_interval_s = 1"
+                 + "\ndedup_chunk_threshold = 4K"
+                 + "\nread_cache_mb = 0"
+                 + "\nwork_threads = 1")
+
+    def admitted_goodput(agg):
+        done = sum(c["admitted"] for c in agg["by_class"].values())
+        return round(done / max(agg["wall_seconds"], 1e-9), 1)
+
+    def cell(agg):
+        return {"ops": agg["ops"], "qps": agg["qps"],
+                "goodput_qps": admitted_goodput(agg),
+                "shed": agg["shed"],
+                "non_shed_errors": agg["errors"] - agg["shed"],
+                "lat_p50_us": agg["lat_p50_us"],
+                "lat_p99_us": agg["lat_p99_us"],
+                "by_class": agg["by_class"]}
+
+    def run_arm(tmp, extra_conf):
+        """A tracker and a storage under ``extra_conf``."""
+        tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"))
+        taddr = f"127.0.0.1:{tr.port}"
+        try:
+            st = native.start_storage(storaged, os.path.join(tmp, "st"),
+                                      trackers=[taddr], dedup_mode="cpu",
+                                      extra=extra_conf)
+        except Exception:
+            tr.stop()
+            raise
+        return tr, taddr, st
+
+    def preload(tmp, taddr):
+        cli = FdfsClient([taddr], device=dev)
+        try:
+            _upload_retry(cli, b"warmup " * 64)
+        finally:
+            cli.close()
+        up_res = os.path.join(tmp, "up.result")
+        _run_load(load, "upload", taddr, str(n_files), str(file_bytes),
+                  str(threads), up_res)
+        up = _combine(load, up_res)
+        _require(up["errors"] == 0, up)
+        return up_res + ".ids"
+
+    def open_loop(tmp, taddr, ids_path, rate, seconds, tag):
+        res = os.path.join(tmp, f"{tag}.result")
+        n_ops = max(int(rate * seconds), 120)
+        _run_load(load, "download", taddr, ids_path, str(n_ops),
+                  str(threads), res, "--open-loop", "--rate", str(rate),
+                  "--priority-mix", mix)
+        return _combine(load, res)
+
+    def admission_gauges(st):
+        with StorageClient(st.ip, st.port, device=dev) as sc:
+            g = sc.stat()["gauges"]
+        return {k: v for k, v in g.items() if k.startswith("admission.")}
+
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+
+    # -- baseline arm: calibrate capacity, then collapse it ---------------
+    tmp = tempfile.mkdtemp(prefix="fdfs_cfg13_baseline_")
+    tr, taddr, st = run_arm(tmp, base_conf + "\nadmission_control = 0")
+    try:
+        ids_path = preload(tmp, taddr)
+        cal_res = os.path.join(tmp, "cal.result")
+        _run_load(load, "download", taddr, ids_path,
+                  str(max(n_files * 4, 300)), str(threads), cal_res)
+        cal = _combine(load, cal_res)
+        _require(cal["errors"] == 0, cal)
+        capacity_qps = cal["qps"]
+        rate_half = max(round(capacity_qps * half_factor, 1), 1.0)
+        rate_over = max(round(capacity_qps * overload_factor, 1), 2.0)
+        # The overload signals are calibrated off the daemon's own
+        # saturated histograms (what its SLO evaluator reads).  Serving
+        # 1 MB bodies off one reactor makes event-loop lag the true
+        # saturation signal, so the loop-lag threshold (and the ladder's
+        # loop-lag pressure knob) is a quarter of saturation: far above
+        # the half-capacity lag, far below overload.  The per-op
+        # download p99 stays sub-ms at every load (reads answer from
+        # the page cache), so its threshold has a floor high enough
+        # never to shed at half capacity.
+        with StorageClient(st.ip, st.port, device=dev) as sc:
+            hists = sc.stat()["histograms"]
+        server_p99_us = hist_quantile(
+            hists["op.download_file.latency_us"], 0.99) or 0.0
+        sat_lag_p99_us = hist_quantile(
+            hists["nio.loop_lag_us"], 0.99) or 0.0
+        slo_threshold_ms = max(round(server_p99_us * 0.5 / 1000.0, 2), 5.0)
+        loop_high_ms = max(int(sat_lag_p99_us * 0.25 / 1000.0), 10)
+        base_over = open_loop(tmp, taddr, ids_path, rate_over,
+                              overload_seconds, "overload")
+        results["baseline"] = {"calibration": {
+            "qps": capacity_qps, "lat_p50_us": cal["lat_p50_us"],
+            "lat_p99_us": cal["lat_p99_us"],
+            "server_download_p99_us": server_p99_us,
+            "saturated_loop_lag_p99_us": sat_lag_p99_us},
+            "overload": cell(base_over)}
+    finally:
+        st.stop()
+        tr.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- admission arm: the same offered rates, the ladder on -------------
+    tmp = tempfile.mkdtemp(prefix="fdfs_cfg13_admission_")
+    slo_path = os.path.join(tmp, "slo.conf")
+    with open(slo_path, "w") as fh:
+        fh.write(f"request_p99_ms_threshold = {slo_threshold_ms}\n")
+        fh.write(f"loop_lag_p99_ms_threshold = {loop_high_ms}\n")
+    tr, taddr, st = run_arm(
+        tmp, base_conf
+        + "\nadmission_control = 1"
+        + "\nadmission_queue_depth_high = 8"
+        + f"\nadmission_loop_lag_high_ms = {loop_high_ms}"
+        + "\nadmission_retry_after_ms = 100"
+        + f"\nslo_rules_file = {slo_path}")
+    try:
+        ids_path = preload(tmp, taddr)
+        adm_half = open_loop(tmp, taddr, ids_path, rate_half,
+                             half_seconds, "half")
+        gauges_half = admission_gauges(st)
+        adm_over = open_loop(tmp, taddr, ids_path, rate_over,
+                             overload_seconds, "overload")
+        gauges_over = admission_gauges(st)
+        results["admission"] = {"half": cell(adm_half),
+                                "overload": cell(adm_over),
+                                "gauges_after_half": gauges_half,
+                                "gauges_after_overload": gauges_over}
+    finally:
+        st.stop()
+        tr.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    over = results["admission"]["overload"]
+    base = results["baseline"]["overload"]
+    bg = over["by_class"].get("background", {})
+    nm = over["by_class"].get("normal", {})
+    ia = over["by_class"].get("interactive", {})
+    return emit(out_dir, 13, {
+        "description": "SLO-driven admission control: the same "
+                       "open-loop priority-mixed download load at "
+                       "1.7x calibrated capacity against admission "
+                       "off (p99 collapse) vs on (sheds background "
+                       "first, interactive reads bounded), with a "
+                       "zero-shed 50%-capacity arm and the ladder's "
+                       "lifetime gauges",
+        "nominal_bytes": NOMINAL[13],
+        "scaled_bytes": n_files * file_bytes,
+        "card": card_line() if dev.type == "cuda" else None,
+        "files": n_files,
+        "file_bytes": file_bytes,
+        "threads": threads,
+        "priority_mix": mix,
+        "capacity_qps": capacity_qps,
+        "slo_request_p99_threshold_ms": slo_threshold_ms,
+        "slo_loop_lag_threshold_ms": loop_high_ms,
+        "offered_rates_qps": {"half": rate_half, "overload": rate_over},
+        "arms": results,
+        "zero_sheds_at_half_capacity":
+            results["admission"]["half"]["shed"] == 0
+            and gauges_half.get("admission.shed_total", 0) == 0,
+        "sheds_under_overload": over["shed"] > 0,
+        "ladder_engaged":
+            gauges_over.get("admission.tightens", 0) >= 1
+            and gauges_over.get("admission.shed_total", 0) >= 1,
+        "zero_non_shed_errors": all(
+            c["non_shed_errors"] == 0
+            for arm in results.values()
+            for k, c in arm.items() if k in ("half", "overload")),
+        "interactive_never_shed": ia.get("shed", 1) == 0,
+        "shed_prefers_background":
+            bg.get("shed", 0) * max(nm.get("ops", 1), 1)
+            >= nm.get("shed", 0) * max(bg.get("ops", 1), 1),
+        "goodput": {
+            "capacity_qps": capacity_qps,
+            "baseline_overload_qps": base["goodput_qps"],
+            "admission_overload_qps": over["goodput_qps"],
+        },
+        "p99_collapse_ratio": round(
+            base["lat_p99_us"]
+            / max(ia.get("lat_p99_us", 1), 1), 2),
+        "admitted_p99_bounded_vs_baseline":
+            ia.get("lat_p99_us", 1 << 62) < base["lat_p99_us"],
+    })
+
+
+def config14(out_dir: str, scale: float, device: str = "cuda") -> dict:
+    """Heat-driven hot replication: the same two-tier read mix (one file
+    takes 90% of the reads, ``--hot-keys 1:90``) against three groups of
+    one storage each, the tracker's hot-map policy off and on.  Each arm
+    uploads 8 KB flat files round-robin across the groups (small objects
+    make the per-read RPCs, not bulk data, the dominant cost: every
+    classic read is a tracker hop and a storage hop, all piling onto one
+    tracker and one home group), warms the heat ledger with an
+    ``fdfs_load --hot-keys`` leg through the tracker hop (its
+    per-key-class summary is recorded), then, on the ON arm only, waits
+    for the tracker to publish the promoted entry (which it does only
+    after the fan-out byte-verified every extra copy), and last runs the
+    measured legs: eight readers on the port's ``FdfsClient``, whose hot
+    routing spreads the hot reads (the tracker's query_fetch never
+    consults the hot map).  The readers write ``fdfs_load``-format
+    record files tagged hot or cold, and ``fdfs_load combine`` prices
+    both arms with the same percentile code.  Each arm measures twice: a
+    closed-loop calibration leg (capacity), then an open-loop window at
+    the same offered rate on both arms, 75% of the OFF arm's capacity,
+    with latency from each op's scheduled start.  Per-group read shares
+    come from the tracker's beat-stat ledger (``success_download``
+    deltas across the window).  The artifact records that the ON arm
+    published the promotion, the per-group read spread of each arm (the
+    ON arm's within 10 points), the hot-key p99 of each, that routed
+    reads flowed and that no read failed.  No kernel runs: the storages
+    keep ``dedup_mode = none``.
+    """
+    dev = resolve_device(device)
+    native = _native()
+    storaged, trackerd, _ = native.native_binaries()
+    load = native.load_binary()
+    file_bytes = 8 << 10
+    n_files = max(int(NOMINAL[14] * scale) // file_bytes, 12)
+    hot_spec = "1:90"
+    hot_frac = 0.90
+    reader_threads = 8
+    measure_seconds = 10.0
+    calib_seconds = 4.0
+    warm_ops = max(min(n_files * 20, 12000), 1200)
+    warm_threads = 8
+    group_names = ("group1", "group2", "group3")
+    storage_conf = (HB
+                    + "\nheat_top_k = 16"
+                    + "\nwork_threads = 1")
+    hot_conf = ("\nhot_promote_threshold = 3"
+                "\nhot_demote_threshold = 1"
+                "\nhot_max_extra_replicas = 2"
+                "\nhot_map_capacity = 8")
+
+    def group_reads(cli):
+        """Per-group ``success_download`` totals from the tracker's
+        beat-stat ledger; their deltas across the measured window are
+        the spread."""
+        out = {}
+        for g in cli.cluster_stat().get("groups", []):
+            out[g["name"]] = sum(int(s["stats"].get("success_download", 0))
+                                 for s in g.get("storages", []))
+        return out
+
+    def all_active(cli):
+        gr = cli.cluster_stat().get("groups", [])
+        return (len(gr) == len(group_names)
+                and all(g.get("active", 0) >= 1 for g in gr))
+
+    def measured_window(taddr, ids, tmp, tag, seconds, rate_qps=None):
+        """``reader_threads`` hot-routing clients drive the 1:90 mix for
+        ``seconds``, each writing an ``fdfs_load``-format record file
+        (with a trailing hot or cold tag) for ``fdfs_load combine``.
+
+        ``rate_qps=None`` runs closed-loop, which measures capacity; its
+        percentiles do not compare across arms (the faster arm completes
+        more ops against the same CPUs and deepens its own tail).  With
+        ``rate_qps`` the readers pace an open-loop schedule at that
+        offered rate and latency counts from each op's scheduled start,
+        so a reader that falls behind charges the backlog to the system
+        and two arms at one rate compare percentile for percentile."""
+        hot_fid, cold = ids[0], ids[1:]
+        lines = [[] for _ in range(reader_threads)]
+        # The default hot_map_ttl_s (5 s): the map is published and
+        # stable when the window opens, and a short TTL would put inline
+        # refresh RPCs inside the timed reads.
+        clis = [FdfsClient([taddr], device=dev)
+                for _ in range(reader_threads)]
+        for c in clis:
+            # Warm outside the clock: the first hot reads fetch the hot
+            # map and rotate through every promoted copy, the first cold
+            # reads open the pooled connections to the other groups.
+            for fid in [hot_fid] * 3 + list(cold[:3]):
+                c.download_to_buffer(fid)
+        interval = (reader_threads / rate_qps) if rate_qps else 0.0
+        start_mono = time.monotonic()
+        start_wall = time.time()
+        stop_at = start_mono + seconds
+
+        def reader(w):
+            rng = random.Random(0x40F0 + w)
+            cli = clis[w]
+            k = 0
+            while True:
+                sched = start_mono + k * interval
+                k += 1
+                if sched >= stop_at:
+                    break
+                now = time.monotonic()
+                if interval and sched > now:
+                    time.sleep(sched - now)
+                elif not interval:
+                    if now >= stop_at:
+                        break
+                    sched = now
+                if rng.random() < hot_frac:
+                    fid, tagk = hot_fid, "hot"
+                else:
+                    fid, tagk = cold[rng.randrange(len(cold))], "cold"
+                try:
+                    data = cli.download_to_buffer(fid)
+                    status = 0 if len(data) == file_bytes else 22
+                except Exception:  # noqa: BLE001 (priced as an error)
+                    data, status = b"", 1
+                lat = max(int((time.monotonic() - sched) * 1e6), 1)
+                sched_us = int((start_wall + (sched - start_mono)) * 1e6)
+                lines[w].append(f"{sched_us} {lat} {status} "
+                                f"{len(data)} 0 {fid} {tagk}")
+
+        workers = [threading.Thread(target=reader, args=(w,))
+                   for w in range(reader_threads)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join()
+        paths = []
+        for w in range(reader_threads):
+            p = os.path.join(tmp, f"{tag}.reader{w}.result")
+            with open(p, "w") as fh:
+                fh.write("".join(ln + "\n" for ln in lines[w]))
+            paths.append(p)
+        routed = sum(c.stats()["hot_route_reads"] for c in clis)
+        fallbacks = sum(c.stats()["hot_fallback_reads"] for c in clis)
+        for c in clis:
+            c.close()
+        return _combine(load, *paths), routed, fallbacks
+
+    def run_arm(promotion_on, offered_rate=None):
+        tag = "on" if promotion_on else "off"
+        tmp = tempfile.mkdtemp(prefix=f"fdfs_cfg14_{tag}_")
+        tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"),
+                                  extra="slo_eval_interval_s = 1"
+                                  + (hot_conf if promotion_on else ""))
+        taddr = f"127.0.0.1:{tr.port}"
+        storages = []
+        cli = None
+        try:
+            for g in group_names:
+                storages.append(native.start_storage(
+                    storaged, os.path.join(tmp, g), group=g,
+                    trackers=[taddr], extra=storage_conf))
+            cli = FdfsClient([taddr], device=dev)
+            _upload_retry(cli, b"warmup " * 64)
+            _require(_wait_for(lambda: all_active(cli), timeout=60),
+                     "storage groups never all joined")
+            # Distinct payloads from fixed seeds (no cross-file dedup
+            # collapsing the chunk store), placed round-robin across the
+            # groups by the tracker (store_lookup 0).
+            ids = [_upload_retry(cli,
+                                 random.Random(0xC14 + i).randbytes(
+                                     file_bytes))
+                   for i in range(n_files)]
+            ids_path = os.path.join(tmp, "corpus.ids")
+            with open(ids_path, "w") as fh:
+                fh.write("".join(fid + "\n" for fid in ids))
+            hot_fid = ids[0]
+
+            # Classic-path warm leg: fdfs_load --hot-keys drives the
+            # two-tier mix through the tracker hop, feeding the heat
+            # ledger; its summary prices the per-key-class split on the
+            # classic path for this arm.
+            warm_res = os.path.join(tmp, "warm.result")
+            _run_load(load, "download", taddr, ids_path, str(warm_ops),
+                      str(warm_threads), warm_res, "--hot-keys", hot_spec)
+            warm = _combine(load, warm_res)
+            _require(warm["errors"] == 0, warm)
+
+            published_groups = []
+            if promotion_on:
+                deadline = time.time() + 120
+                while time.time() < deadline and not published_groups:
+                    m = cli.query_hot_map()
+                    published_groups = next(
+                        (list(e["groups"]) for e in m["entries"]
+                         if e["key"] == hot_fid and e["groups"]), [])
+                    if not published_groups:
+                        # keep the EWMA warm while the fan-out verifies
+                        cli.download_to_buffer(hot_fid)
+                        time.sleep(0.2)
+                _require(published_groups, "hot entry never published")
+
+            # Closed-loop calibration leg: this arm's capacity with the
+            # same readers.  The OFF arm's sets the offered rate of both
+            # arms' open-loop windows (75% of it).
+            calib, _, _ = measured_window(taddr, ids, tmp,
+                                          tag + "_calib", calib_seconds)
+            rate = offered_rate or max(int(calib["qps"] * 0.75), 100)
+
+            time.sleep(2.5)  # let the last pre-window beats land
+            before = group_reads(cli)
+            agg, routed, fallbacks = measured_window(
+                taddr, ids, tmp, tag, measure_seconds, rate)
+            time.sleep(2.5)  # and the final post-window beats
+            after = group_reads(cli)
+            deltas = {g: after.get(g, 0) - before.get(g, 0) for g in after}
+            total = max(sum(deltas.values()), 1)
+            shares = {g: round(d / total, 4) for g, d in deltas.items()}
+            spread_pp = round(
+                (max(shares.values()) - min(shares.values())) * 100.0, 2)
+            gauges = cli._with_tracker(lambda t: t.stat()).get("gauges", {})
+            return {
+                "closed_loop_capacity_qps": calib["qps"],
+                "offered_rate_qps": rate,
+                "classic_hot_keys_leg": {
+                    "ops": warm["ops"], "qps": warm["qps"],
+                    "errors": warm["errors"],
+                    "by_key_class": warm.get("by_key_class", {})},
+                "measured": {
+                    "ops": agg["ops"], "qps": agg["qps"],
+                    "errors": agg["errors"],
+                    "lat_p50_us": agg["lat_p50_us"],
+                    "lat_p99_us": agg["lat_p99_us"],
+                    "by_key_class": agg.get("by_key_class", {})},
+                "hot_route_reads": routed,
+                "hot_fallback_reads": fallbacks,
+                "published_extra_groups": published_groups,
+                "group_read_deltas": deltas,
+                "group_read_shares": shares,
+                "group_spread_pp": spread_pp,
+                "hot_gauges": {k: v for k, v in gauges.items()
+                               if k.startswith("hot.")},
+            }
+        finally:
+            if cli is not None:
+                cli.close()
+            _stop(tr, storages[::-1])
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    os.makedirs(out_dir, exist_ok=True)
+    off = run_arm(False)
+    on = run_arm(True, offered_rate=off["offered_rate_qps"])
+    on_hot = on["measured"]["by_key_class"].get("hot", {})
+    off_hot = off["measured"]["by_key_class"].get("hot", {})
+    return emit(out_dir, 14, {
+        "description": "Heat-driven elastic replication: the same "
+                       "1:90 hot/cold read mix against the hot-map "
+                       "policy off vs on — post-promotion per-group "
+                       "read spread within 10 pp where the off arm "
+                       "piles onto the home group, hot-key p99 "
+                       "flattened, routed reads flowing, zero errors "
+                       "through the whole arc",
+        "nominal_bytes": NOMINAL[14],
+        "scaled_bytes": n_files * file_bytes,
+        "card": card_line() if dev.type == "cuda" else None,
+        "files": n_files,
+        "file_bytes": file_bytes,
+        "hot_keys_spec": hot_spec,
+        "warm_ops": warm_ops,
+        "reader_threads": reader_threads,
+        "measure_seconds": measure_seconds,
+        "offered_rate_qps": off["offered_rate_qps"],
+        "off_capacity_qps": off["closed_loop_capacity_qps"],
+        "on_capacity_qps": on["closed_loop_capacity_qps"],
+        "open_loop_note":
+            "each arm first runs a closed-loop calibration leg "
+            "(closed_loop_capacity_qps); the latency window is then "
+            "open-loop at the SAME offered rate on both arms (75% of "
+            "the off arm's capacity) with latency measured from each "
+            "op's scheduled start, because closed-loop percentiles "
+            "self-penalize the faster arm: it completes more ops "
+            "against the same CPUs and buys its throughput win with a "
+            "deeper saturation tail",
+        "host_cpus": os.cpu_count() or 1,
+        "single_host_note":
+            "all three storage groups, the tracker, the fdfs_load "
+            "driver and the Python readers share this one host's CPUs, "
+            "so the absolute qps columns are machine numbers, not "
+            "cluster numbers; the transferable results are the "
+            "per-group read-share spread and the ON-vs-OFF hot-key "
+            "latency comparison, both measured identically on the two "
+            "arms",
+        "arms": {"off": off, "on": on},
+        "hot_promotion_published": bool(on["published_extra_groups"]),
+        "routed_reads_flowed": on["hot_route_reads"] > 0,
+        "off_group_spread_pp": off["group_spread_pp"],
+        "on_group_spread_pp": on["group_spread_pp"],
+        "post_promotion_spread_within_10pp":
+            on["group_spread_pp"] <= 10.0,
+        "hot_p99_off_us": off_hot.get("lat_p99_us", 0),
+        "hot_p99_on_us": on_hot.get("lat_p99_us", 0),
+        "hot_p99_flatter_with_promotion":
+            0 < on_hot.get("lat_p99_us", 0)
+            < off_hot.get("lat_p99_us", 1),
+        "zero_read_errors":
+            off["measured"]["errors"] == 0
+            and on["measured"]["errors"] == 0,
+    })
+
+
 CONFIGS = {1: config1, 2: config2, 3: config3, 4: config4, 5: config5,
            6: config6, 7: config7, 8: config8, 9: config9, 10: config10,
-           11: config11}
+           11: config11, 12: config12, 13: config13, 14: config14}
 
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
-        description="configs 1-11 of bench_configs.py on the port "
-                    "(12-14 are not ported)")
+        description="configs 1-14 of bench_configs.py on the port")
     ap.add_argument("--config", type=int, default=0,
                     choices=[0, *sorted(CONFIGS)],
-                    help="which config (1-11); 0 = all, in order")
+                    help="which config (1-14); 0 = all, in order")
     ap.add_argument("--scale", type=float, default=None,
                     help="fraction of the nominal corpus size")
     ap.add_argument("--full", action="store_true",

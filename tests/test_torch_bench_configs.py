@@ -2,11 +2,12 @@
 against the reference's root ``bench_configs.py``: the same corpus and
 referee byte for byte, the same recall, classes, counts and agreement
 from config 4 on the CPU, and config 5's artifact shapes with eight CPU
-ranks; the sizes of configs 1-11, each refusing ``cuda`` without a card
-(configs 1-3 and 6-11 before any daemon; their runs are in
+ranks; the sizes of configs 1-14, each refusing ``cuda`` without a card
+(configs 1-3 and 6-14 before any daemon; their runs are in
 ``tests/test_torch_bench_daemon.py``, ``tests/test_torch_bench_host.py``,
-``tests/test_torch_bench_slab.py`` and
-``tests/test_torch_bench_groups.py``), and ``main``'s choice of configs
+``tests/test_torch_bench_slab.py``, ``tests/test_torch_bench_groups.py``,
+``tests/test_torch_bench_edge.py``, ``tests/test_torch_bench_admission.py``
+and ``tests/test_torch_bench_hot.py``), and ``main``'s choice of configs
 and scales against the reference's."""
 
 import functools
@@ -52,7 +53,7 @@ def test_textbook_minhash_is_the_references(n_docs, num_perms, shingle):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("config", range(1, 12))
+@pytest.mark.parametrize("config", range(1, 15))
 def test_sizes_are_the_references(config):
     assert bc.NOMINAL[config] == ref_bc.NOMINAL[config]
     assert bc.DEFAULT_SCALE[config] == ref_bc.DEFAULT_SCALE[config]
@@ -65,16 +66,17 @@ def _record(calls, config, out_dir, scale, *device):
 # Command lines and the (config, scale) calls the port's ``main`` makes
 # for them: ``--full`` runs the nominal size and beats ``--scale``, and
 # ``--config 0`` or none runs every config in order.
-ALL_DEFAULTS = [(c, bc.DEFAULT_SCALE[c]) for c in range(1, 12)]
+ALL_DEFAULTS = [(c, bc.DEFAULT_SCALE[c]) for c in range(1, 15)]
 MAIN_CASES = [
     (["--config", "4", "--full"], [(4, 1.0)]),
     (["--config", "0"], ALL_DEFAULTS),
     ([], ALL_DEFAULTS),
-    (["--full"], [(c, 1.0) for c in range(1, 12)]),
+    (["--full"], [(c, 1.0) for c in range(1, 15)]),
     (["--config", "9", "--scale", "0.5", "--full"], [(9, 1.0)]),
     (["--config", "0", "--scale", "0.125"],
-     [(c, 0.125) for c in range(1, 12)]),
+     [(c, 0.125) for c in range(1, 15)]),
     (["--config", "11"], [(11, 1 / 256.0)]),
+    (["--config", "14"], [(14, 1 / 64.0)]),
 ]
 
 
@@ -103,7 +105,7 @@ def test_default_out_is_ignored_and_not_the_references():
         assert "bench_torch_out/" in fh.read().split()
 
 
-@pytest.mark.parametrize("config", range(1, 12))
+@pytest.mark.parametrize("config", range(1, 15))
 def test_configs_refuse_cuda_without_a_card(config, tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")

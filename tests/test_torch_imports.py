@@ -1,9 +1,13 @@
 """The port stands alone: no module of fastdfs_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package, and its entry
+chip_smoke.py, imports JAX or anything of the JAX package or names one
+of its modules (as ``python -m`` in a subprocess would), and its entry
 points refuse CUDA where there is none instead of falling back."""
 
+import ast
+import glob
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -37,6 +41,26 @@ def test_no_module_imports_jax_or_the_reference_package():
     n_modules, bad = out.stdout.split(maxsplit=1)
     assert int(n_modules) >= 29
     assert bad.strip() == "[]"
+
+
+def test_no_source_names_a_reference_module():
+    """No string in the port's source or chip_smoke.py is a module name
+    of the JAX package (an argv item of ``python -m fastdfs_tpu.cli``, a
+    name for importlib) or a ``-m fastdfs_tpu.`` command line."""
+    paths = glob.glob(os.path.join(REPO, "fastdfs_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    named = []
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and (node.value.startswith("fastdfs_tpu.")
+                         or re.search(r"-m\s+fastdfs_tpu\.", node.value))):
+                named.append(f"{os.path.relpath(path, REPO)}:{node.lineno}")
+    assert len(paths) > 30
+    assert named == []
 
 
 def test_every_module_is_listed():
