@@ -2201,11 +2201,16 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
     artifact as ``config12_reactors{1,4}.folded`` with the live conns
     per reactor sampled in the capture window.  No kernel runs: the
     storage dedups on its CPU and ``fdfs_load`` is the client.
+
+    One deliberate difference from the reference: the flamegraph's load
+    starts when the CLI has armed the sampler, not 0.5 s before the CLI
+    starts.  The port's CLI imports torch before it arms the sampler,
+    which on an H100's host takes longer than the ~8 s load
+    (``tools/cli_startup.py`` times it), so with the reference's order
+    every capture there fell after the load, and some held no sample.
     """
     dev = resolve_device(device)
-    native = _native()
-    storaged, trackerd, _ = native.native_binaries()
-    load = native.load_binary()
+    load = _native().load_binary()
     file_bytes = 256 * 1024
     n_files = max(int(NOMINAL[12] * scale) // file_bytes, 24)
     n_ops = n_files * 4
@@ -2217,10 +2222,9 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
     burst_conns = 64
     profile_hz = 97
     profile_seconds = 3
-    daemon_conf = (HB
-                   + "\ndedup_chunk_threshold = 4K"   # 256 KB: ~64 chunks
-                   + "\nread_cache_mb = 0"            # the cold path
-                   + "\nprofile_max_hz = 200")
+    daemon_keys = ("dedup_chunk_threshold = 4K"   # 256 KB: ~64 chunks
+                   "\nread_cache_mb = 0"          # the cold path
+                   "\nprofile_max_hz = 200")
 
     def daemon_stat(st):
         with StorageClient(st.ip, st.port, device=dev) as sc:
@@ -2242,17 +2246,11 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
     for reactors in (1, reactors_hi):
         arm = f"reactors{reactors}"
         tmp = tempfile.mkdtemp(prefix=f"fdfs_cfg12_{arm}_")
-        tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"))
+        tr, sts, cli = _cluster(
+            tmp, dev, keys=daemon_keys + f"\nwork_threads = {reactors}")
+        st = sts[0]
         taddr = f"127.0.0.1:{tr.port}"
-        sts = []
-        cli = None
         try:
-            st = native.start_storage(
-                storaged, os.path.join(tmp, "st"), trackers=[taddr],
-                dedup_mode="cpu",
-                extra=daemon_conf + f"\nwork_threads = {reactors}")
-            sts.append(st)
-            cli = FdfsClient([taddr], device=dev)
             _upload_retry(cli, b"warmup " * 64)
             up_res = os.path.join(tmp, "up.result")
             _run_load(load, "upload", taddr, str(n_files), str(file_bytes),
@@ -2337,41 +2335,59 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
                          and max(vals) <= 2 * mean)
 
             # Flamegraph: arm the in-daemon sampler through the port's
-            # CLI while an open-loop run is in flight, and sample the
-            # live conns per reactor inside the capture window.
+            # CLI with an open-loop run in flight, and sample the live
+            # conns per reactor inside the capture window.  The
+            # reference starts the load 0.5 s before its CLI.  The
+            # port's CLI imports torch before it arms the sampler, 7.6-
+            # 8.9 s on a card's host, longer than the ~8 s load, so the
+            # load starts when the CLI reports the sampler armed.
             flame_rate = rates[-1]
             flame_ops = max(int(flame_rate * 8), n_ops)
-            bg = subprocess.Popen(
-                [load, "download", taddr, ids_path, str(flame_ops),
-                 str(threads), os.path.join(tmp, "flame.result"),
-                 "--conns", str(threads),
-                 "--open-loop", "--rate", str(flame_rate)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            env = dict(os.environ)
+            env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+            t0 = time.perf_counter()
+            # Unbuffered, so reading up to the "armed" line takes no byte
+            # past it from communicate().
+            prof = subprocess.Popen(
+                [sys.executable, "-m", "fastdfs_tpu_torch.cli",
+                 "--device", dev.type, "profile",
+                 taddr, f"{st.ip}:{st.port}",
+                 "--hz", str(profile_hz),
+                 "--seconds", str(profile_seconds)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
+                bufsize=0)
+            bg = None
+            err_head = b""
             try:
-                time.sleep(0.5)
-                env = dict(os.environ)
-                env["PYTHONPATH"] = (REPO + os.pathsep
-                                     + env.get("PYTHONPATH", ""))
-                t0 = time.perf_counter()
-                prof = subprocess.run(
-                    [sys.executable, "-m", "fastdfs_tpu_torch.cli",
-                     "--device", dev.type, "profile",
-                     taddr, f"{st.ip}:{st.port}",
-                     "--hz", str(profile_hz),
-                     "--seconds", str(profile_seconds)],
-                    capture_output=True, timeout=120, env=env)
+                for line in iter(prof.stderr.readline, b""):
+                    err_head += line
+                    if line.startswith(b"armed "):
+                        bg = subprocess.Popen(
+                            [load, "download", taddr, ids_path,
+                             str(flame_ops), str(threads),
+                             os.path.join(tmp, "flame.result"),
+                             "--conns", str(threads),
+                             "--open-loop", "--rate", str(flame_rate)],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+                        break
+                out, err = prof.communicate(timeout=120)
                 prof_wall = time.perf_counter() - t0
                 # The open-loop schedule keeps the load alive past the
                 # capture deadline, so this sample still sees it.
                 disp = reactor_family(daemon_stat(st)["gauges"],
                                       "nio.conns.")
             finally:
-                bg.wait(timeout=600)
+                if prof.poll() is None:
+                    prof.kill()
+                    prof.wait()
+                if bg is not None:
+                    bg.wait(timeout=600)
+            _require(prof.returncode == 0 and bg is not None,
+                     (err_head + err).decode(errors="replace"))
             _require(bg.returncode == 0,
                      f"the flamegraph's load exited {bg.returncode}")
-            _require(prof.returncode == 0,
-                     prof.stderr.decode(errors="replace"))
-            folded = prof.stdout.decode()
+            folded = out.decode()
             flame_name = f"config12_{arm}.folded"
             with open(os.path.join(out_dir, flame_name), "w") as fh:
                 fh.write(folded)
@@ -2419,8 +2435,7 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
                 },
             }
         finally:
-            if cli is not None:
-                cli.close()
+            cli.close()
             _stop(tr, sts)
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2490,9 +2505,7 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
     ``fdfs_load`` is the client.
     """
     dev = resolve_device(device)
-    native = _native()
-    storaged, trackerd, _ = native.native_binaries()
-    load = native.load_binary()
+    load = _native().load_binary()
     file_bytes = 1 << 20
     n_files = max(int(NOMINAL[13] * scale) // file_bytes, 12)
     # Enough blocking load workers that the saturated closed-loop p99
@@ -2508,11 +2521,10 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
     # one reactor keeps the capacity low enough to overload from a
     # single driver; 1 s SLO and metrics ticks let the ladder move a
     # rung a second instead of every five.
-    base_conf = (HB
-                 + "\nslo_eval_interval_s = 1"
-                 + "\ndedup_chunk_threshold = 4K"
-                 + "\nread_cache_mb = 0"
-                 + "\nwork_threads = 1")
+    base_keys = ("slo_eval_interval_s = 1"
+                 "\ndedup_chunk_threshold = 4K"
+                 "\nread_cache_mb = 0"
+                 "\nwork_threads = 1")
 
     def admitted_goodput(agg):
         done = sum(c["admitted"] for c in agg["by_class"].values())
@@ -2527,25 +2539,8 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
                 "lat_p99_us": agg["lat_p99_us"],
                 "by_class": agg["by_class"]}
 
-    def run_arm(tmp, extra_conf):
-        """A tracker and a storage under ``extra_conf``."""
-        tr = native.start_tracker(trackerd, os.path.join(tmp, "tr"))
-        taddr = f"127.0.0.1:{tr.port}"
-        try:
-            st = native.start_storage(storaged, os.path.join(tmp, "st"),
-                                      trackers=[taddr], dedup_mode="cpu",
-                                      extra=extra_conf)
-        except Exception:
-            tr.stop()
-            raise
-        return tr, taddr, st
-
-    def preload(tmp, taddr):
-        cli = FdfsClient([taddr], device=dev)
-        try:
-            _upload_retry(cli, b"warmup " * 64)
-        finally:
-            cli.close()
+    def preload(tmp, taddr, cli):
+        _upload_retry(cli, b"warmup " * 64)
         up_res = os.path.join(tmp, "up.result")
         _run_load(load, "upload", taddr, str(n_files), str(file_bytes),
                   str(threads), up_res)
@@ -2571,9 +2566,12 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
 
     # -- baseline arm: calibrate capacity, then collapse it ---------------
     tmp = tempfile.mkdtemp(prefix="fdfs_cfg13_baseline_")
-    tr, taddr, st = run_arm(tmp, base_conf + "\nadmission_control = 0")
+    tr, sts, cli = _cluster(tmp, dev,
+                            keys=base_keys + "\nadmission_control = 0")
+    st = sts[0]
+    taddr = f"127.0.0.1:{tr.port}"
     try:
-        ids_path = preload(tmp, taddr)
+        ids_path = preload(tmp, taddr, cli)
         cal_res = os.path.join(tmp, "cal.result")
         _run_load(load, "download", taddr, ids_path,
                   str(max(n_files * 4, 300)), str(threads), cal_res)
@@ -2608,8 +2606,8 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
             "saturated_loop_lag_p99_us": sat_lag_p99_us},
             "overload": cell(base_over)}
     finally:
-        st.stop()
-        tr.stop()
+        cli.close()
+        _stop(tr, sts)
         shutil.rmtree(tmp, ignore_errors=True)
 
     # -- admission arm: the same offered rates, the ladder on -------------
@@ -2618,15 +2616,17 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
     with open(slo_path, "w") as fh:
         fh.write(f"request_p99_ms_threshold = {slo_threshold_ms}\n")
         fh.write(f"loop_lag_p99_ms_threshold = {loop_high_ms}\n")
-    tr, taddr, st = run_arm(
-        tmp, base_conf
+    tr, sts, cli = _cluster(
+        tmp, dev, keys=base_keys
         + "\nadmission_control = 1"
         + "\nadmission_queue_depth_high = 8"
         + f"\nadmission_loop_lag_high_ms = {loop_high_ms}"
         + "\nadmission_retry_after_ms = 100"
         + f"\nslo_rules_file = {slo_path}")
+    st = sts[0]
+    taddr = f"127.0.0.1:{tr.port}"
     try:
-        ids_path = preload(tmp, taddr)
+        ids_path = preload(tmp, taddr, cli)
         adm_half = open_loop(tmp, taddr, ids_path, rate_half,
                              half_seconds, "half")
         gauges_half = admission_gauges(st)
@@ -2638,8 +2638,8 @@ def config13(out_dir: str, scale: float, device: str = "cuda") -> dict:
                                 "gauges_after_half": gauges_half,
                                 "gauges_after_overload": gauges_over}
     finally:
-        st.stop()
-        tr.stop()
+        cli.close()
+        _stop(tr, sts)
         shutil.rmtree(tmp, ignore_errors=True)
 
     over = results["admission"]["overload"]

@@ -19,18 +19,11 @@ import os
 import pytest
 
 from fastdfs_tpu_torch import bench_configs as bc
+from torch_native import same_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = {"interactive", "normal", "background"}
 VERDICTS = ("zero_non_shed_errors", "interactive_never_shed")
-
-
-def _same_keys(got, want, path=""):
-    """The same dict keys as ``want`` at every level."""
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for key in want:
-            _same_keys(got[key], want[key], f"{path}/{key}")
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +39,7 @@ def test_config13_keys_are_the_references(config13):
         ref = json.load(fh)
     assert set(config13) == set(ref) | {"card"}
     assert config13["card"] is None
-    _same_keys({k: v for k, v in config13.items() if k != "card"}, ref)
+    same_keys({k: v for k, v in config13.items() if k != "card"}, ref)
 
 
 @pytest.mark.parametrize("verdict", VERDICTS)

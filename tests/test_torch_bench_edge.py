@@ -8,7 +8,9 @@ burst of sockets, the ranged downloader and a flamegraph of each arm,
 taken by the port's CLI.  The artifact keeps the checked-in reference
 artifact's keys, plus the card line, and its correctness verdicts hold;
 its latency ratios depend on the host's load and are not held.  Also
-``_run_load``'s pool-stats line on a stubbed ``subprocess.run``.
+``_run_load``'s pool-stats line on a stubbed ``subprocess.run``, and
+``tools.cli_startup``, which times the start-up of the CLI that the
+flamegraph waits for.
 """
 
 import json
@@ -17,8 +19,11 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from fastdfs_tpu_torch import bench_configs as bc
+from fastdfs_tpu_torch.tools import cli_startup
+from torch_native import same_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALLEST = 1 / 65536   # 24 files of 256 KB, the reference's floor
@@ -31,33 +36,21 @@ VERDICTS = ("zero_errors", "conn_budget_honored",
 ARMS = {"reactors1": 1, "reactors4": 4}
 
 
-def _same_keys(got, want, path=""):
-    """The same dict keys as ``want`` at every level (lists by their first
-    item), ``LOAD_ADDED`` besides in an ``fdfs_load`` summary."""
-    if isinstance(want, dict):
-        added = LOAD_ADDED if path.endswith("/preload") else set()
-        assert set(got) == set(want) | added, path
-        for key in want:
-            _same_keys(got[key], want[key], f"{path}/{key}")
-    elif isinstance(want, list) and want and isinstance(want[0], dict):
-        assert len(got) == len(want), path
-        _same_keys(got[0], want[0], f"{path}[0]")
-
-
 @pytest.fixture(scope="module")
 def config12(tmp_path_factory):
     """``(artifact, out_dir, argvs)``: config 12 on the CPU through
-    ``main``, with the argv of every ``subprocess.run`` it made."""
+    ``main``, with the argv of every process it started (``subprocess.run``
+    starts each through ``subprocess.Popen``)."""
     out = tmp_path_factory.mktemp("port12")
     argvs = []
-    run = subprocess.run
 
-    def recording(args, *a, **kw):
-        argvs.append(list(args))
-        return run(args, *a, **kw)
+    class Recording(subprocess.Popen):
+        def __init__(self, args, *a, **kw):
+            argvs.append([str(x) for x in args])
+            super().__init__(args, *a, **kw)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(subprocess, "run", recording)
+        mp.setattr(subprocess, "Popen", Recording)
         bc.main(["--config", "12", "--scale", str(SMALLEST), "--device",
                  "cpu", "--out", str(out)])
     with open(os.path.join(str(out), "config12.json")) as fh:
@@ -70,7 +63,8 @@ def test_config12_keys_are_the_references(config12):
         ref = json.load(fh)
     assert set(art) == set(ref) | {"card"}
     assert art["card"] is None
-    _same_keys({k: v for k, v in art.items() if k != "card"}, ref)
+    same_keys({k: v for k, v in art.items() if k != "card"}, ref,
+              LOAD_ADDED, "/preload")
 
 
 @pytest.mark.parametrize("verdict", VERDICTS)
@@ -122,15 +116,21 @@ def test_config12_flamegraph_is_written(config12, arm):
 
 
 def test_config12_profiles_through_the_ports_cli(config12):
-    _, _, argvs = config12
-    profiles = [a for a in argvs if "profile" in a]
+    art, _, argvs = config12
+    profiles = [i for i, a in enumerate(argvs) if "profile" in a]
     assert len(profiles) == 2
-    for argv in profiles:
+    rate = str(art["offered_rates_qps"][-1])
+    for i in profiles:
+        argv = argvs[i]
         assert argv[:6] == [sys.executable, "-m", "fastdfs_tpu_torch.cli",
                             "--device", "cpu", "profile"]
         assert argv[8:] == ["--hz", "97", "--seconds", "3"]
+        # The flamegraph's load starts after the CLI, at the top rate.
+        load = argvs[i + 1]
+        assert load[1] == "download" and load[-3:] == ["--open-loop",
+                                                       "--rate", rate]
     assert not [a for a in argvs
-                if any(str(x).startswith("fastdfs_tpu.") for x in a)]
+                if any(x.startswith("fastdfs_tpu.") for x in a)]
 
 
 POOL_LINE = ('{"conns_budget": 1, "conns_opened": 1, "conns_peak": 1, '
@@ -160,3 +160,18 @@ def test_run_load_raises_with_stderr(monkeypatch):
                         subprocess.CompletedProcess(args, 2, b"", b"bad rate"))
     with pytest.raises(RuntimeError, match="bad rate"):
         bc._run_load("fdfs_load", "download")
+
+
+def test_cli_startup_times_each_part_on_the_cpu():
+    runs = cli_startup.main(["--device", "cpu", "--repeat", "1"])
+    assert set(runs) == {"interpreter", "import_torch", "cli_to_its_tool"}
+    assert all(len(v) == 1 and v[0] > 0 for v in runs.values())
+    assert runs["import_torch"][0] > runs["interpreter"][0]
+
+
+def test_cli_startup_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_startup.main([])
+    assert "import_torch_and_cuda_init" in cli_startup.cases("cuda")

@@ -18,20 +18,13 @@ import random
 import pytest
 
 from fastdfs_tpu_torch import bench_configs as bc
+from torch_native import same_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALLEST = 1 / 65536   # 12 files of 8 KB, the reference's floor
 FILE_BYTES = 8192
 VERDICTS = ("hot_promotion_published", "routed_reads_flowed",
             "zero_read_errors")
-
-
-def _same_keys(got, want, path=""):
-    """The same dict keys as ``want`` at every level."""
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for key in want:
-            _same_keys(got[key], want[key], f"{path}/{key}")
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +53,7 @@ def test_config14_keys_are_the_references(config14):
         ref = json.load(fh)
     assert set(art) == set(ref) | {"card"}
     assert art["card"] is None
-    _same_keys({k: v for k, v in art.items() if k != "card"}, ref)
+    same_keys({k: v for k, v in art.items() if k != "card"}, ref)
 
 
 @pytest.mark.parametrize("verdict", VERDICTS)

@@ -77,7 +77,8 @@ def test_every_module_is_listed():
                  "client.tracker_client", "client.storage_client",
                  "client.client", "trace", "common.fileid", "common.mime",
                  "common.http_token", "monitor", "cli", "bench",
-                 "bench_configs", "tools.bench_index_scale"):
+                 "bench_configs", "tools.bench_index_scale",
+                 "tools.cli_startup"):
         assert "fastdfs_tpu_torch." + want in names
 
 

@@ -24,7 +24,8 @@ host may have another package named ``tests``), and this file loads
 It also holds the inputs that the port's tests and ``chip_smoke.py``
 share: for the gear CDC ``plant_candidate``, ``seam_plants``,
 ``plant_wide``, ``wide_seam_plants`` and ``dense_pair``; for the sketch
-at other shingle widths ``shingle_segment``.
+at other shingle widths ``shingle_segment``; and ``same_keys``, which
+holds a benchmark artifact's keys to a reference artifact's.
 """
 
 from __future__ import annotations
@@ -304,6 +305,21 @@ def shingle_segment(rng: np.random.Generator, k: int
             lens.append(n)
             seg += rng.integers(0, 256, n, dtype=np.uint8).tobytes()
     return bytes(seg), offsets, lens
+
+
+def same_keys(got, want, added=frozenset(), added_in="", path=""):
+    """Assert that ``got`` has ``want``'s dict keys at every level (a
+    list of dicts by its first item), and ``added`` besides in each dict
+    whose path ends with ``added_in`` (``/arms/reactors1/preload``
+    ends with ``/preload``)."""
+    if isinstance(want, dict):
+        extra = set(added) if added_in and path.endswith(added_in) else set()
+        assert set(got) == set(want) | extra, path
+        for key in want:
+            same_keys(got[key], want[key], added, added_in, f"{path}/{key}")
+    elif isinstance(want, list) and want and isinstance(want[0], dict):
+        assert len(got) == len(want), path
+        same_keys(got[0], want[0], added, added_in, f"{path}[0]")
 
 
 if __name__ == "__main__":
