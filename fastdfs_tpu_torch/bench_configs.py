@@ -2336,11 +2336,9 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
 
             # Flamegraph: arm the in-daemon sampler through the port's
             # CLI with an open-loop run in flight, and sample the live
-            # conns per reactor inside the capture window.  The
-            # reference starts the load 0.5 s before its CLI.  The
-            # port's CLI imports torch before it arms the sampler, 7.6-
-            # 8.9 s on a card's host, longer than the ~8 s load, so the
-            # load starts when the CLI reports the sampler armed.
+            # conns per reactor inside the capture window.  The load
+            # starts when the CLI reports the sampler armed (the
+            # docstring says why).
             flame_rate = rates[-1]
             flame_ops = max(int(flame_rate * 8), n_ops)
             env = dict(os.environ)
@@ -2356,6 +2354,9 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
                  "--seconds", str(profile_seconds)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env,
                 bufsize=0)
+            # The reference's 120 s limit on the CLI, "armed" line included.
+            watchdog = threading.Timer(120, prof.kill)
+            watchdog.start()
             bg = None
             err_head = b""
             try:
@@ -2371,13 +2372,14 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
                             stdout=subprocess.DEVNULL,
                             stderr=subprocess.DEVNULL)
                         break
-                out, err = prof.communicate(timeout=120)
+                out, err = prof.communicate()
                 prof_wall = time.perf_counter() - t0
                 # The open-loop schedule keeps the load alive past the
                 # capture deadline, so this sample still sees it.
                 disp = reactor_family(daemon_stat(st)["gauges"],
                                       "nio.conns.")
             finally:
+                watchdog.cancel()
                 if prof.poll() is None:
                     prof.kill()
                     prof.wait()
