@@ -2205,8 +2205,8 @@ def config12(out_dir: str, scale: float, device: str = "cuda") -> dict:
     One deliberate difference from the reference: the flamegraph's load
     starts when the CLI has armed the sampler, not 0.5 s before the CLI
     starts.  The port's CLI imports torch before it arms the sampler,
-    which on an H100's host takes longer than the ~8 s load
-    (``tools/cli_startup.py`` times it), so with the reference's order
+    which on an H100's host takes longer than the ~8 s load (this
+    config prints the CLI's wall time), so with the reference's order
     every capture there fell after the load, and some held no sample.
     """
     dev = resolve_device(device)

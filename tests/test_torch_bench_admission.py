@@ -1,16 +1,17 @@
 """The port's config 13 (``fastdfs_tpu_torch.bench_configs``), SLO-driven
-admission control, against the reference's root ``bench_configs.py`` on
-the CPU, through ``tests/torch_native.py``'s daemons and ``fdfs_load``.
+admission control, on the CPU through ``tests/torch_native.py``'s
+daemons and ``fdfs_load``.
 
 It runs once at its default scale, 12 files of 1 MB, the size of the
 reference's artifact: a baseline storage (admission off) calibrated and
 then offered 1.7x its capacity, and a storage with the ladder on,
 offered half and then 1.7x that capacity, each leg a priority-mixed
-open-loop download load of the reference's fixed length.  The artifact
-keeps the checked-in reference artifact's keys, plus the card line, and
-the verdicts that do not depend on the host's load hold; whether the
-half-capacity leg sheds, and how far the baseline collapses, depend on
-what else the host runs, and are not held.
+open-loop download load of the reference's fixed length.  What is held
+to the reference is the artifact's keys, at every level: the checked-in
+reference artifact's, plus the card line.  The rest holds the port to
+those of its own verdicts that do not depend on the host's load;
+whether the half-capacity leg sheds, and how far the baseline
+collapses, depend on what else the host runs, and are not held.
 """
 
 import json

@@ -1,16 +1,19 @@
 """The port's config 12 (``fastdfs_tpu_torch.bench_configs``), the
-serving edge, against the reference's root ``bench_configs.py`` on the
-CPU, through ``tests/torch_native.py``'s daemons and ``fdfs_load``.
+serving edge, on the CPU through ``tests/torch_native.py``'s daemons and
+``fdfs_load``.
 
 It runs once at its smallest corpus, 24 files of 256 KB: a 1-reactor and
 a 4-reactor storage under the same open-loop download rates, a held
 burst of sockets, the ranged downloader and a flamegraph of each arm,
-taken by the port's CLI.  The artifact keeps the checked-in reference
-artifact's keys, plus the card line, and its correctness verdicts hold;
-its latency ratios depend on the host's load and are not held.  Also
-``_run_load``'s pool-stats line on a stubbed ``subprocess.run``, and
-``tools.cli_startup``, which times the start-up of the CLI that the
-flamegraph waits for.
+taken by the port's CLI.  What is held to the reference: the artifact's
+keys, at every level, are the checked-in reference artifact's (plus the
+card line and ``fdfs_load``'s newer summary keys), and every file the
+port's ranged downloader reads is read again, from the same daemons, by
+the reference's own client (``fastdfs_tpu.client``), which must return
+the same bytes.  The rest holds the port to its own correctness
+verdicts and to ``main``'s dispatch; its latency ratios depend on the
+host's load and are not held.  Also ``_run_load``'s pool-stats line on a
+stubbed ``subprocess.run``.
 """
 
 import json
@@ -19,10 +22,9 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
+from fastdfs_tpu.client.client import FdfsClient as ReferenceClient
 from fastdfs_tpu_torch import bench_configs as bc
-from fastdfs_tpu_torch.tools import cli_startup
 from torch_native import same_keys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,27 +40,51 @@ ARMS = {"reactors1": 1, "reactors4": 4}
 
 @pytest.fixture(scope="module")
 def config12(tmp_path_factory):
-    """``(artifact, out_dir, argvs)``: config 12 on the CPU through
-    ``main``, with the argv of every process it started (``subprocess.run``
-    starts each through ``subprocess.Popen``)."""
+    """``(artifact, out_dir, argvs, reads)``: config 12 on the CPU
+    through ``main``, with the argv of every process it started
+    (``subprocess.run`` starts each through ``subprocess.Popen``) and,
+    for each file its ranged downloader read, ``(bytes read, whether the
+    reference's client read the same bytes)``."""
     out = tmp_path_factory.mktemp("port12")
-    argvs = []
+    argvs, reads = [], []
 
     class Recording(subprocess.Popen):
         def __init__(self, args, *a, **kw):
             argvs.append([str(x) for x in args])
             super().__init__(args, *a, **kw)
 
+    class Checked(bc.FdfsClient):
+        """The port's client; as the ranged downloader it reads each
+        file again through the reference's single-stream client."""
+
+        def __init__(self, trackers, *a, **kw):
+            super().__init__(trackers, *a, **kw)
+            self.reference = (ReferenceClient(trackers)
+                              if self.parallel_downloads > 1 else None)
+
+        def download_to_buffer(self, file_id, *a, **kw):
+            got = super().download_to_buffer(file_id, *a, **kw)
+            if self.reference is not None:
+                want = self.reference.download_to_buffer(file_id)
+                reads.append((len(got), got == want))
+            return got
+
+        def close(self):
+            if self.reference is not None:
+                self.reference.close()
+            super().close()
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(subprocess, "Popen", Recording)
+        mp.setattr(bc, "FdfsClient", Checked)
         bc.main(["--config", "12", "--scale", str(SMALLEST), "--device",
                  "cpu", "--out", str(out)])
     with open(os.path.join(str(out), "config12.json")) as fh:
-        return json.load(fh), str(out), argvs
+        return json.load(fh), str(out), argvs, reads
 
 
 def test_config12_keys_are_the_references(config12):
-    art, _, _ = config12
+    art, _, _, _ = config12
     with open(os.path.join(REPO, "bench_artifacts", "config12.json")) as fh:
         ref = json.load(fh)
     assert set(art) == set(ref) | {"card"}
@@ -78,6 +104,12 @@ def test_config12_loses_no_byte(config12):
     assert art["files"] == 24 and art["open_loop_ops"] == 96
     assert art["scaled_bytes"] == 24 * 256 * 1024
     assert len(art["offered_rates_qps"]) == 2
+
+
+def test_config12_ranged_bytes_are_the_reference_clients(config12):
+    reads = config12[3]
+    assert len(reads) == 2 * 24
+    assert reads == [(256 * 1024, True)] * len(reads)
 
 
 @pytest.mark.parametrize("arm", ARMS)
@@ -103,7 +135,7 @@ def test_config12_arm(config12, arm):
 
 @pytest.mark.parametrize("arm", ARMS)
 def test_config12_flamegraph_is_written(config12, arm):
-    art, out, _ = config12
+    art, out, _, _ = config12
     flame = art["arms"][arm]["flamegraph"]
     assert flame["folded_file"] == f"config12_{arm}.folded"
     assert (flame["hz"], flame["seconds"]) == (97, 3)
@@ -116,7 +148,7 @@ def test_config12_flamegraph_is_written(config12, arm):
 
 
 def test_config12_profiles_through_the_ports_cli(config12):
-    art, _, argvs = config12
+    art, _, argvs, _ = config12
     profiles = [i for i, a in enumerate(argvs) if "profile" in a]
     assert len(profiles) == 2
     rate = str(art["offered_rates_qps"][-1])
@@ -161,17 +193,3 @@ def test_run_load_raises_with_stderr(monkeypatch):
     with pytest.raises(RuntimeError, match="bad rate"):
         bc._run_load("fdfs_load", "download")
 
-
-def test_cli_startup_times_each_part_on_the_cpu():
-    runs = cli_startup.main(["--device", "cpu", "--repeat", "1"])
-    assert set(runs) == {"interpreter", "import_torch", "cli_to_its_tool"}
-    assert all(len(v) == 1 and v[0] > 0 for v in runs.values())
-    assert runs["import_torch"][0] > runs["interpreter"][0]
-
-
-def test_cli_startup_refuses_cuda_without_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is visible")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli_startup.main([])
-    assert "import_torch_and_cuda_init" in cli_startup.cases("cuda")

@@ -1,22 +1,29 @@
 """The port's config 14 (``fastdfs_tpu_torch.bench_configs``), heat-driven
-hot replication, against the reference's root ``bench_configs.py`` on
-the CPU, through ``tests/torch_native.py``'s daemons and ``fdfs_load``.
+hot replication, on the CPU through ``tests/torch_native.py``'s daemons
+and ``fdfs_load``.
 
 It runs once at its smallest corpus, 12 files of 8 KB, on a tracker and
 three groups of one storage each: the hot-map policy off, then on, each
 arm warmed by ``fdfs_load --hot-keys 1:90`` and measured by eight
-readers on the port's ``FdfsClient``.  The artifact keeps the checked-in
-reference artifact's keys, plus the card line, the payloads are the
-reference's seeded ones, and the correctness verdicts hold; the spreads
-and hot-key p99s depend on the host's load and are not held.
+readers on the port's ``FdfsClient``.  What is held to the reference:
+the artifact's keys, at every level, are the checked-in reference
+artifact's (plus the card line), and every payload the port uploads is
+the one root ``config14`` uploads, recorded from the reference's own
+code (it stops after its first arm's corpus, before a daemon would be
+needed).  The rest holds the port to its own correctness verdicts; the
+spreads and hot-key p99s depend on the host's load and are not held.
 """
 
 import json
 import os
-import random
+import tempfile
+import types
 
 import pytest
 
+import bench_configs as ref_bc
+import harness
+from fastdfs_tpu.client import client as ref_client
 from fastdfs_tpu_torch import bench_configs as bc
 from torch_native import same_keys
 
@@ -61,12 +68,68 @@ def test_config14_verdict_holds(config14, verdict):
     assert config14[0][verdict] is True
 
 
-@pytest.mark.parametrize("i", [0, 1])
-def test_config14_payloads_are_the_seeded_ones(config14, i):
+class _Corpus(Exception):
+    """Root ``config14`` has uploaded its first arm's corpus."""
+
+
+class _Daemon:
+    port = 1
+
+    def stop(self):
+        pass
+
+
+class _Client:
+    def __init__(self, *a, **kw):
+        pass
+
+    def cluster_stat(self):
+        return {"groups": [{"name": g, "active": 1}
+                           for g in ("group1", "group2", "group3")]}
+
+
+@pytest.fixture(scope="module")
+def reference_payloads(tmp_path_factory):
+    """What root ``config14`` passes to ``_upload_retry`` on its first
+    arm, the warm-up and then the corpus.  Its daemons and client are
+    stand-ins, and its first ``fdfs_load`` run, the warm leg that follows
+    the corpus, stops it."""
+    payloads = []
+
+    def upload(cli, data, *a, **kw):
+        payloads.append(data)
+        return f"group1/M00/00/00/{len(payloads)}"
+
+    def run(*a, **kw):
+        raise _Corpus
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tempfile, "tempdir", str(tmp_path_factory.mktemp("ref14")))
+        mp.setattr(harness, "start_tracker", lambda *a, **kw: _Daemon())
+        mp.setattr(harness, "start_storage", lambda *a, **kw: _Daemon())
+        mp.setattr(ref_client, "FdfsClient", _Client)
+        mp.setattr(ref_bc, "_upload_retry", upload)
+        mp.setattr(ref_bc, "subprocess", types.SimpleNamespace(run=run))
+        with pytest.raises(_Corpus):
+            ref_bc.config14("unused", SMALLEST)
+    return payloads
+
+
+def test_config14_uploads_the_references_warmup(config14, reference_payloads):
+    """Each arm begins with the reference's warm-up upload."""
+    warmup = reference_payloads[0]
+    assert len(warmup) != FILE_BYTES
+    assert [p for p in config14[1] if len(p) != FILE_BYTES] == [warmup] * 2
+
+
+@pytest.mark.parametrize("i", range(12))
+def test_config14_payloads_are_the_seeded_ones(config14, reference_payloads,
+                                               i):
     corpus = [p for p in config14[1] if len(p) == FILE_BYTES]
-    want = random.Random(0xC14 + i).randbytes(FILE_BYTES)
-    # Each arm uploads the same corpus, in order.
-    assert corpus[i] == corpus[12 + i] == want
+    want = reference_payloads[1:]
+    assert len(want) == 12 and len(want[i]) == FILE_BYTES
+    # Each arm uploads the reference's corpus, in order.
+    assert corpus[i] == corpus[12 + i] == want[i]
 
 
 def test_config14_corpus(config14):

@@ -77,8 +77,7 @@ def test_every_module_is_listed():
                  "client.tracker_client", "client.storage_client",
                  "client.client", "trace", "common.fileid", "common.mime",
                  "common.http_token", "monitor", "cli", "bench",
-                 "bench_configs", "tools.bench_index_scale",
-                 "tools.cli_startup"):
+                 "bench_configs", "tools.bench_index_scale"):
         assert "fastdfs_tpu_torch." + want in names
 
 

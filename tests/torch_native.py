@@ -310,8 +310,8 @@ def shingle_segment(rng: np.random.Generator, k: int
 def same_keys(got, want, added=frozenset(), added_in="", path=""):
     """Assert that ``got`` has ``want``'s dict keys at every level (a
     list of dicts by its first item), and ``added`` besides in each dict
-    whose path ends with ``added_in`` (``/arms/reactors1/preload``
-    ends with ``/preload``)."""
+    whose path ends with ``added_in``, a suffix or a tuple of them
+    (``/arms/reactors1/preload`` ends with ``/preload``)."""
     if isinstance(want, dict):
         extra = set(added) if added_in and path.endswith(added_in) else set()
         assert set(got) == set(want) | extra, path
