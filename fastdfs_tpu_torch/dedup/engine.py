@@ -22,6 +22,17 @@ contiguous runs balanced by bytes, one per device (the counterpart of the
 reference's row sharding over ``parallel.make_fingerprint_step``): each
 device gets its run's byte range plus ``SEGMENT_SLACK`` and its run's
 table, rebased and ordered longest first, and one launch of each kernel.
+
+Every call of ``fingerprint`` writes its stages to the process's span
+ring (``trace.SPAN_RING``): a root ``engine.fingerprint`` and, one after
+another from its start to its end, ``engine.cuts`` (the cuts found or
+read, and checked), ``engine.stage_wait`` (this thread's previous uploads
+landing), ``engine.stage_copy`` (the segment into staging, the slack
+zeroed), then for each run ``engine.table`` (``_runs`` and the chunk
+table), ``engine.upload`` (the copies and the event, as enqueued),
+``engine.launch`` (the output and both kernels' launches), then
+``engine.copy_back`` for each run (which waits on the device) and
+``engine.unpack``.  The spans observe; they change no order of work.
 """
 
 from __future__ import annotations
@@ -44,6 +55,17 @@ from fastdfs_tpu_torch.ops.minhash import (DEFAULT_PERMS, DEFAULT_SHINGLE,
                                            perm_words)
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
 from fastdfs_tpu_torch.parallel.mesh import cuda_devices
+from fastdfs_tpu_torch.trace import SPAN_RING, CallSpans
+
+_ROOT_SPAN = "engine.fingerprint"
+_CUTS = SPAN_RING.code("engine.cuts")
+_STAGE_WAIT = SPAN_RING.code("engine.stage_wait")
+_STAGE_COPY = SPAN_RING.code("engine.stage_copy")
+_TABLE = SPAN_RING.code("engine.table")
+_UPLOAD = SPAN_RING.code("engine.upload")
+_LAUNCH = SPAN_RING.code("engine.launch")
+_COPY_BACK = SPAN_RING.code("engine.copy_back")
+_UNPACK = SPAN_RING.code("engine.unpack")
 
 
 @dataclass(frozen=True)
@@ -128,15 +150,17 @@ class _Staging:
     """This thread's host staging for one segment: its bytes (plus
     SEGMENT_SLACK) and its chunk table (each run's offsets, then its
     lengths and longest-first order as int32 pairs), pinned on a CUDA
-    engine and grown to the largest segment seen, and the events recorded
-    after the last uploads from it, one per device."""
+    engine and grown to the largest segment seen, the events recorded
+    after the last uploads from it, one per device, and the recorder of
+    this thread's calls."""
 
-    __slots__ = ("seg", "table", "uploaded")
+    __slots__ = ("seg", "table", "uploaded", "spans")
 
     def __init__(self) -> None:
         self.seg = torch.empty(0, dtype=torch.uint8)
         self.table = torch.empty(0, dtype=torch.int64)
         self.uploaded: list[torch.cuda.Event] = []
+        self.spans = CallSpans(SPAN_RING, _ROOT_SPAN)
 
 
 class DedupEngine:
@@ -193,14 +217,19 @@ class DedupEngine:
                              f"by fan_out {len(devs)}")
         return devs
 
-    def _stage(self, seg_len: int, n: int) -> _Staging:
-        """This thread's staging, after its previous uploads landed, grown
-        to hold ``seg_len`` bytes plus the slack and an ``n``-chunk table."""
+    def _thread(self) -> _Staging:
         st = getattr(self._staging, "st", None)
         if st is None:
             st = self._staging.st = _Staging()
+        return st
+
+    def _stage(self, st: _Staging, seg_len: int, n: int) -> None:
+        """Wait until this thread's previous uploads landed, then grow its
+        staging to hold ``seg_len`` bytes plus the slack and an
+        ``n``-chunk table."""
         for ev in st.uploaded:
             ev.synchronize()
+        st.spans.end(_STAGE_WAIT)
         pinned = self.device.type == "cuda"
         if st.seg.shape[0] < seg_len + SEGMENT_SLACK:
             st.seg = torch.empty(seg_len + SEGMENT_SLACK, dtype=torch.uint8,
@@ -208,7 +237,6 @@ class DedupEngine:
         if st.table.shape[0] < 2 * n:
             st.table = torch.empty(2 * n, dtype=torch.int64,
                                    pin_memory=pinned)
-        return st
 
     def _fingerprint_segment(self, data, offsets: np.ndarray,
                              lens: np.ndarray) -> np.ndarray:
@@ -217,13 +245,16 @@ class DedupEngine:
         run, in order: uint32 (N, 5 + P), digests then signatures."""
         n = len(lens)
         seg_len = int(offsets[-1] + lens[-1])
-        st = self._stage(seg_len, n)
+        st = self._thread()
+        rec = st.spans
+        self._stage(st, seg_len, n)
         host = st.seg.numpy()
         host[:seg_len] = np.frombuffer(data, dtype=np.uint8, count=seg_len)
         host[seg_len:seg_len + SEGMENT_SLACK] = 0
         table = st.table.numpy()
         outs = []
         st.uploaded = []
+        rec.end(_STAGE_COPY)
         for dev, (a, b) in zip(self.devices,
                                _runs(offsets, lens, len(self.devices))):
             if a == b:
@@ -235,14 +266,21 @@ class DedupEngine:
             pack_chunk_table(table[2 * a:2 * b], offsets[a:b] - lo, lens[a:b])
             seg = st.seg[lo:hi + SEGMENT_SLACK]
             tab = st.table[2 * a:2 * b]
+            rec.end(_TABLE)
             if dev.type == "cuda":
                 seg = seg.to(dev, non_blocking=True)
                 tab = tab.to(dev, non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(dev))
                 st.uploaded.append(ev)
+            rec.end(_UPLOAD)
             outs.append(self._fingerprint_run(dev, seg, *chunk_table(tab, b - a)))
-        return np.concatenate([o.cpu().numpy() for o in outs]).view(np.uint32)
+            rec.end(_LAUNCH)
+        hosts = []
+        for o in outs:
+            hosts.append(o.cpu().numpy())
+            rec.end(_COPY_BACK)
+        return np.concatenate(hosts).view(np.uint32)
 
     def _fingerprint_run(self, dev, seg, d_off, d_len, d_order
                          ) -> torch.Tensor:
@@ -276,6 +314,8 @@ class DedupEngine:
         shares the gear table).  They must increase and stay within
         ``data``; a chunk may start at any byte.
         """
+        rec = self._thread().spans
+        rec.open()
         cfg = self.config
         if cuts is None:
             cuts = gear_cdc.chunk_stream(data, cfg.min_size, cfg.avg_bits,
@@ -284,16 +324,20 @@ class DedupEngine:
                                          device=self.device)
         ends = np.asarray(cuts, dtype=np.int64).reshape(-1)
         if not len(ends):
+            rec.close(_CUTS)
             return [], np.zeros((0, 5), np.uint32), np.zeros((0, cfg.num_perms), np.uint32)
         lens = np.diff(ends, prepend=0)
         offsets = ends - lens
         if (lens < 0).any() or ends[-1] > len(data) or lens.max() >= 1 << 31:
             raise ValueError("cuts must increase, stay within the data and "
                              "leave chunks under 2 GiB")
+        rec.end(_CUTS)
         packed = self._fingerprint_segment(data, offsets, lens)
-        spans = list(zip(offsets.tolist(), lens.tolist()))
-        return (spans, np.ascontiguousarray(packed[:, :5]),
-                np.ascontiguousarray(packed[:, 5:]))
+        out = (list(zip(offsets.tolist(), lens.tolist())),
+               np.ascontiguousarray(packed[:, :5]),
+               np.ascontiguousarray(packed[:, 5:]))
+        rec.close(_UNPACK)
+        return out
 
     def warmup(self) -> None:
         """Load the kernels and run one small segment through them, so the

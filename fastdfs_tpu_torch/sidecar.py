@@ -23,7 +23,11 @@ Opcodes
   canonical file id if known.
 * ``DEDUP_COMMIT`` (122): text body, one of
   ``commitfile <sha1hex> <file_id>`` | ``commitchunks <session> <file_id>``
-  | ``abort <session>`` | ``forget <file_id>`` | ``stats``.
+  | ``abort <session>`` | ``forget <file_id>`` | ``stats`` | ``trace``
+  (the newest ``TRACE_SPANS`` spans of the process's span ring, where
+  the engine writes the stages of every fingerprint call, as a
+  ``TRACE_DUMP`` object with role ``sidecar`` and the ring's
+  ``recorded`` and ``dropped``).
 * ``DEDUP_NEARDUPS`` (123): body = file id text.  Response: ranked text
   lines ``<file_id> <score>``; status 61 when the file carries no
   signature.
@@ -66,12 +70,15 @@ from fastdfs_tpu_torch.ops import SEGMENT_SLACK
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import CDC_SPEC_VERSION
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
+from fastdfs_tpu_torch.trace import SPAN_RING
 
 _I64 = struct.Struct(">q")
 # DEDUP_VERIFY's per-chunk header: 8B BE length + 20B expected raw SHA1.
 _VERIFY_ENTRY = np.dtype([("length", ">i8"), ("digest", "S20")])
 
 _SESSION_TTL = 600.0  # seconds before an uncommitted session is reaped
+# How many of the newest spans the ``trace`` commit subcommand returns.
+TRACE_SPANS = 4096
 
 
 class _Session:
@@ -285,6 +292,9 @@ class DedupSidecar:
         parts = body.decode("utf-8", "replace").split()
         if not parts:
             return 22, b""
+        if parts == ["trace"]:
+            return 0, json.dumps(SPAN_RING.dump("sidecar",
+                                                newest=TRACE_SPANS)).encode()
         with self._lock:
             if parts[0] == "commitfile" and len(parts) == 3:
                 self.files.setdefault(parts[1], parts[2])

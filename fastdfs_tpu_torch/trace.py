@@ -18,6 +18,13 @@ The pipeline (fastdfs_tpu extension; upstream FastDFS has no tracing):
    ``TRACE_DUMP`` opcodes, ``stitch`` groups spans by trace_id, and
    ``render_timeline`` draws one request's cross-node timeline.
 
+The port's own processes keep such a ring too: ``SPAN_RING``, one per
+process, always on, into which ``DedupEngine.fingerprint`` writes the
+stages of every call (``CallSpans``).  It dumps in the same shape, so
+``decode_dump``, ``stitch`` and ``render_timeline`` read it unchanged.
+Its timestamps come from ``time.time_ns()``: the daemons' wall clock,
+and the clock of ``torch.profiler``'s host events.
+
 The dump JSON shape is the cross-language contract (covered by the
 ``fdfs_codec trace-json`` golden in tests/test_trace.py):
 
@@ -29,11 +36,15 @@ The dump JSON shape is the cross-language contract (covered by the
 
 from __future__ import annotations
 
+import array
 import json
 import secrets
+import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
+
+import numpy as np
 
 from fastdfs_tpu_torch.common.protocol import (
     TRACE_CTX_LEN,
@@ -48,7 +59,8 @@ from fastdfs_tpu_torch.common.protocol import (
 __all__ = [
     "TraceContext", "Span", "Tracer", "decode_dump", "stitch",
     "render_timeline", "collect_cluster_spans", "traced_upload",
-    "TRACE_FLAG_SAMPLED", "TRACE_FLAG_SLOW",
+    "TRACE_FLAG_SAMPLED", "TRACE_FLAG_SLOW", "SpanRing", "CallSpans",
+    "SPAN_RING", "RING_CAPACITY",
 ]
 
 
@@ -333,3 +345,209 @@ def spans_to_json(spans: list[Span]) -> str:
         "flags": s.flags,
         "node": s.node,
     } for s in spans], indent=2)
+
+
+# ---------------------------------------------------------------------------
+# the in-process span ring
+# ---------------------------------------------------------------------------
+
+RING_CAPACITY = 1 << 20
+# Span ids of the ring: 31 bits, never 0 (0 is "no parent").
+_SPAN_ID_MOD = (1 << 31) - 1
+# The most spans one call may write.
+_MAX_CALL_SPANS = 1 << 12
+# A call's spans are written children first, root last: each span's
+# distance to its root, for a call of k spans, is _TO_ROOT[-k:].
+_TO_ROOT = array.array("h", range(_MAX_CALL_SPANS - 1, -1, -1))
+# The slots' columns and their types, as ``array`` typecodes (int64,
+# int16, int32), which NumPy reads too.
+_COLUMNS = {"start": "q", "end": "q", "name": "h", "tid": "i", "to_root": "h"}
+
+
+class SpanRing:
+    """The Python counterpart of the daemons' ``TraceRing``: a fixed
+    number of span slots, the oldest overwritten, with ``recorded`` and
+    ``dropped`` counted as the native ring counts them.
+
+    Spans arrive a call at a time (``CallSpans``): the children that
+    follow one another inside the call, then its root.  The slots are
+    columns allocated on the first record: start and end
+    (``time.time_ns()``), name code, native thread id, and each span's
+    distance to its root (0 for the root), from which its parent and its
+    call follow.  A call's id, the trace id of its spans, is its root's
+    place in the order of recording plus one.
+    """
+
+    def __init__(self, capacity: int = RING_CAPACITY) -> None:
+        self.capacity = capacity
+        self.recorded = 0
+        # The latest end of any span the ring has overwritten: a window
+        # that starts after it lost nothing.
+        self.lost_until_ns = 0
+        self.names: list[str] = []
+        self._codes: dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._cols: dict[str, np.ndarray] = {}
+        self._views: tuple = ()
+
+    @property
+    def dropped(self) -> int:
+        return max(0, self.recorded - self.capacity)
+
+    def code(self, name: str) -> int:
+        """The name's code in this ring, registered on first use."""
+        with self._lock:
+            if name not in self._codes:
+                self._codes[name] = len(self.names)
+                self.names.append(name)
+            return self._codes[name]
+
+    def _allocate(self) -> None:
+        # Zeros, so that a slot never written ends at 0; the pages are
+        # touched only as spans arrive.
+        self._cols = {key: np.zeros(self.capacity, code)
+                      for key, code in _COLUMNS.items()}
+        # Typed views of the columns, written as ``array.array``s are.
+        self._views = tuple(memoryview(self._cols[key]).cast("B").cast(code)
+                            for key, code in _COLUMNS.items())
+
+    def _record(self, start: array.array, end: array.array,
+                name: array.array, tids: array.array) -> None:
+        """One call's spans as columns, its children in order and then its
+        root: starts, ends, name codes, and ``tids`` the thread's id, at
+        least once a span."""
+        k = len(name)
+        if not 0 < k <= _MAX_CALL_SPANS or len(start) != k or len(end) != k:
+            raise ValueError(f"a call writes 1 to {_MAX_CALL_SPANS} spans, "
+                             f"each with a start and an end, not {k} names, "
+                             f"{len(start)} starts and {len(end)} ends")
+        rows = (start, end, name, tids[:k], _TO_ROOT[-k:])
+        with self._lock:
+            if not self._views:
+                self._allocate()
+            cap = self.capacity
+            i = self.recorded % cap
+            # The call's slots: from i to the end of the ring, the rest
+            # from slot 0.
+            j = min(k, cap - i)
+            ends = self._views[1]
+            if self.recorded + k > cap:
+                # The slots about to be overwritten (one never written
+                # ends at 0).
+                self.lost_until_ns = max(self.lost_until_ns, *ends[i:i + j],
+                                         *ends[:k - j])
+            self.recorded += k
+            for view, row in zip(self._views, rows):
+                if j < k:
+                    view[:k - j] = row[j:]
+                    row = row[:j]
+                view[i:i + j] = row
+
+    def arrays(self, since_ns: int | None = None,
+               until_ns: int | None = None) -> dict[str, np.ndarray]:
+        """The kept spans that start at or after ``since_ns`` and end by
+        ``until_ns``, in the order of recording, as arrays: ``seq`` (the
+        place in that order), ``start_ns``, ``end_ns``, ``name`` (codes
+        into ``names``), ``call``, ``tid`` and ``parent_seq`` (-1 for a
+        root).  A child whose root was overwritten keeps its call id and
+        names a parent that is gone."""
+        with self._lock:
+            n = min(self.recorded, self.capacity)
+            head = self.recorded % self.capacity
+            order = (np.r_[head:self.capacity, 0:head]
+                     if self.recorded > self.capacity else np.arange(n))
+            out = ({key: col[order] for key, col in self._cols.items()}
+                   if n else {key: np.zeros(0, code)
+                              for key, code in _COLUMNS.items()})
+            first = self.recorded - n
+        out["seq"] = first + np.arange(n, dtype=np.int64)
+        to_root = out.pop("to_root").astype(np.int64)
+        out["parent_seq"] = np.where(to_root > 0, out["seq"] + to_root, -1)
+        out["call"] = out["seq"] + to_root + 1
+        out["start_ns"] = out.pop("start")
+        out["end_ns"] = out.pop("end")
+        keep = np.ones(n, bool)
+        if since_ns is not None:
+            keep &= out["start_ns"] >= since_ns
+        if until_ns is not None:
+            keep &= out["end_ns"] <= until_ns
+        return {k: v[keep] for k, v in out.items()}
+
+    def spans(self, since_ns: int | None = None, until_ns: int | None = None,
+              newest: int | None = None) -> list[Span]:
+        """The kept spans inside the window as ``Span`` objects, in whole
+        microseconds (an end is floored as its start is, so children
+        stay inside their root), or only the ``newest`` of them."""
+        a = self.arrays(since_ns, until_ns)
+        if newest is not None:
+            a = {k: v[max(0, len(v) - newest):] for k, v in a.items()}
+        start_us = a["start_ns"] // 1000
+        end_us = a["end_ns"] // 1000
+        span_id = a["seq"] % _SPAN_ID_MOD + 1
+        parent = np.where(a["parent_seq"] >= 0,
+                          a["parent_seq"] % _SPAN_ID_MOD + 1, 0)
+        return [Span(trace_id=c, span_id=s, parent_id=p, name=self.names[n],
+                     start_us=b, dur_us=e - b, node="engine")
+                for c, s, p, n, b, e in zip(
+                    a["call"].tolist(), span_id.tolist(), parent.tolist(),
+                    a["name"].tolist(), start_us.tolist(), end_us.tolist())]
+
+    def dump(self, role: str, newest: int | None = None) -> dict:
+        """A ``TRACE_DUMP`` object (what ``decode_dump`` reads) of the
+        kept spans, or of the ``newest``, sorted by start as the native
+        ring sorts them, with the ring's ``recorded`` and ``dropped``."""
+        spans = sorted(self.spans(newest=newest),
+                       key=lambda s: (s.start_us, s.span_id))
+        return {"role": role, "port": 0, "recorded": self.recorded,
+                "dropped": self.dropped,
+                "spans": [{"trace_id": f"{s.trace_id:016x}",
+                           "span_id": f"{s.span_id:08x}",
+                           "parent_id": f"{s.parent_id:08x}",
+                           "name": s.name, "start_us": s.start_us,
+                           "dur_us": s.dur_us, "status": 0, "flags": 0}
+                          for s in spans]}
+
+
+class CallSpans:
+    """One thread's recorder, one call at a time.  The root and its first
+    child start at ``open``; each ``end(code)`` closes the child that
+    began at the mark before it and starts the next; ``close(code)``
+    closes the last child and the root at one mark, so the children cover
+    the call from end to end.  The marks stay in this recorder until
+    ``close`` writes the call to the ring in one short locked append.  A
+    call that never reaches ``close`` writes nothing."""
+
+    __slots__ = ("ring", "root", "tids", "marks", "codes")
+
+    def __init__(self, ring: SpanRing, name: str) -> None:
+        self.ring = ring
+        self.root = ring.code(name)
+        self.tids = array.array("i", [threading.get_native_id()]
+                                ) * _MAX_CALL_SPANS
+        self.marks = array.array("q")
+        self.codes = array.array("h")
+
+    def open(self) -> None:
+        del self.marks[:]
+        del self.codes[:]
+        self.marks.append(time.time_ns())
+
+    def end(self, code: int) -> None:
+        self.marks.append(time.time_ns())
+        self.codes.append(code)
+
+    def close(self, code: int) -> None:
+        self.end(code)
+        marks = self.marks
+        # Child j runs from marks[j] to marks[j + 1], the root from the
+        # first mark to the last.
+        start = marks[:]
+        start[-1] = marks[0]
+        end = marks[1:]
+        end.append(marks[-1])
+        name = self.codes[:]
+        name.append(self.root)
+        self.ring._record(start, end, name, self.tids)
+
+
+SPAN_RING = SpanRing()

@@ -247,3 +247,39 @@ def test_state_dirs_resume_across_packages(runs):
     assert t_answers[2] == want["query_known"]
     assert t_answers[3] == want["fingerprint_cuts_a"]
     assert t_items and t_items == j_items
+
+
+def test_trace_returns_the_engines_spans():
+    """``trace`` on DEDUP_COMMIT answers the newest spans of the
+    process's ring as a TRACE_DUMP object: the fingerprint calls' stages,
+    which the trace tools decode and render."""
+    from fastdfs_tpu_torch import trace as T
+
+    a, _, _ = _corpus()
+    C = tproto.StorageCmd
+    with tempfile.TemporaryDirectory(prefix="fdfs") as d:
+        served = _port(os.path.join(d, "t.sock"), None)
+        try:
+            since_us = T.time.time_ns() // 1000
+            status, _ = served.call(C.DEDUP_FINGERPRINT_CUTS,
+                                    _cuts_body(1, 0, a))
+            assert status == 0
+            status, resp = served.call(C.DEDUP_COMMIT, b"trace")
+        finally:
+            served.close()
+    assert status == 0
+    dump = json.loads(resp)
+    assert dump["role"] == "sidecar"
+    assert dump["recorded"] >= len(dump["spans"]) > 0
+    assert dump["dropped"] == max(0, dump["recorded"] - T.RING_CAPACITY)
+    assert len(dump["spans"]) <= tsidecar.TRACE_SPANS
+    spans = [s for s in T.decode_dump(dump) if s.start_us >= since_us]
+    roots = [s for s in spans if s.name == "engine.fingerprint"]
+    assert len(roots) == 1
+    call = T.stitch(spans)[roots[0].trace_id]
+    assert [s.name for s in call] == [
+        "engine.fingerprint", "engine.cuts", "engine.stage_wait",
+        "engine.stage_copy",
+        "engine.table", "engine.upload", "engine.launch",
+        "engine.copy_back", "engine.unpack"]
+    assert "engine.copy_back" in T.render_timeline(spans, roots[0].trace_id)
