@@ -27,9 +27,10 @@ Every call of ``fingerprint`` writes its stages to the process's span
 ring (``trace.SPAN_RING``): a root ``engine.fingerprint`` and, one after
 another from its start to its end, ``engine.cuts`` (the cuts found or
 read, and checked), ``engine.stage_wait`` (this thread's previous uploads
-landing), ``engine.stage_copy`` (the segment into staging, the slack
-zeroed), then for each run ``engine.table`` (``_runs`` and the chunk
-table), ``engine.upload`` (the copies and the event, as enqueued),
+landing), ``engine.stage_copy`` (the segment into staging, sliced over a
+shared pool of host threads on a card when it is long enough
+(``stage_copy``), the slack zeroed), then for each run ``engine.table``
+(``_runs`` and the chunk table), ``engine.upload`` (the copies and the event, as enqueued),
 ``engine.launch`` (the output and both kernels' launches), then
 ``engine.copy_back`` for each run (which waits on the device) and
 ``engine.unpack``.  The spans observe; they change no order of work.
@@ -43,6 +44,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from fastdfs_tpu_torch.dedup import stage_copy
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex, MinHashLSHIndex
 from fastdfs_tpu_torch.ops import (SEGMENT_SLACK, bucket_lens, chunk_table,
                                    gear_cdc, pack_chunk_table, resolve_device)
@@ -195,6 +197,11 @@ class DedupEngine:
         self._consts = {dev: perm_words(cfg.num_perms, dev)
                         for dev in set(self.devices)}
         self._staging = threading.local()
+        # How the staging copy ran: calls copied in slices over the shared
+        # pool, calls copied inline, and slices the pool's threads copied.
+        self.stage_counts = {"stage_sliced": 0, "stage_inline": 0,
+                             "stage_pool_slices": 0}
+        self._counts_lock = threading.Lock()
 
     def _fan_devices(self, devices) -> list[torch.device]:
         fan = self.config.fan_out
@@ -249,8 +256,14 @@ class DedupEngine:
         rec = st.spans
         self._stage(st, seg_len, n)
         host = st.seg.numpy()
-        host[:seg_len] = np.frombuffer(data, dtype=np.uint8, count=seg_len)
+        slices, pooled = stage_copy.copy(
+            host, np.frombuffer(data, dtype=np.uint8, count=seg_len),
+            stage_copy.native_copy(self.device))
         host[seg_len:seg_len + SEGMENT_SLACK] = 0
+        with self._counts_lock:
+            self.stage_counts["stage_sliced" if slices > 1
+                              else "stage_inline"] += 1
+            self.stage_counts["stage_pool_slices"] += pooled
         table = st.table.numpy()
         outs = []
         st.uploaded = []

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  One
+shared library with a plain C interface, loaded with ``ctypes`` (one of
+them, ``host_copy.cu``, holds host code only: the engine's staging copy).  One
 ``nvcc`` per source runs in parallel, then one link.  The library lands
 in ``fastdfs_tpu_torch/_build/`` under a name keyed on a hash of the
 sources and flags, so a checkout builds on its first kernel call and
@@ -57,6 +58,9 @@ _SIGNATURES = {
     "fdfs_sketch_ragged_k": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int,
                              ctypes.c_int, ctypes.c_uint, _VP,
                              ctypes.c_longlong, _VP, _VP],
+    # dst, src, n, step, threads (host only: the engine's staging copy)
+    "fdfs_host_copy": [_VP, _VP, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_int],
 }
 
 

@@ -130,7 +130,9 @@ class DedupSidecar:
         # lock_wait_us / engine_us price the one-engine-serialization
         # design: lock_wait is time requests spent queued on _lock,
         # engine is time actually inside engine.fingerprint.  Read via
-        # the `stats` commit subcommand (bench stage attribution).
+        # the `stats` commit subcommand (bench stage attribution);
+        # the answer adds the engine's staging-copy counters
+        # (DedupEngine.stage_counts).
         self.stats = {"fingerprint_bytes": 0, "chunks": 0, "requests": 0,
                       "lock_wait_us": 0, "engine_us": 0}
         if state_dir:
@@ -310,7 +312,8 @@ class DedupSidecar:
                         self.engine.near.add(sess.sig, file_id)
                 return 0, b""
             if parts[0] == "stats" and len(parts) == 1:
-                return 0, json.dumps(self.stats).encode()
+                return 0, json.dumps({**self.stats,
+                                      **self.engine.stage_counts}).encode()
             if parts[0] == "abort" and len(parts) == 2:
                 self._sessions.pop(_parse_session(parts[1]), None)
                 return 0, b""

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fastdfs_tpu_torch.client import fingerprint_buffer
+from fastdfs_tpu_torch.dedup import stage_copy
 from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
 from fastdfs_tpu_torch.entry import dryrun_multichip, entry
 from fastdfs_tpu_torch.ops import SEGMENT_SLACK, minhash, rs_code, sha1, widen
@@ -112,6 +113,37 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device, perms):
     assert spans == ref[0]
     assert np.array_equal(digests, ref[1])
     assert np.array_equal(sigs, ref[2])
+
+
+@pytest.mark.gpu
+def test_engine_sliced_staging_copy_on_card(cuda_device, monkeypatch):
+    """A segment long enough to slice goes through the kernel library's
+    C++ copy pool: the staging holds its bytes and zeroed slack after a
+    longer call, and the answers are those of the same segment copied
+    inline, with digests as hashlib's."""
+    rng = np.random.RandomState(21)
+    longer = rng.randint(0, 256, size=(24 << 20) + 5, dtype=np.uint8)
+    data = rng.randint(0, 256, size=(20 << 20) + 3,
+                       dtype=np.uint8).tobytes()
+    cuts = chunk_stream_np(data, 2048, 13, 65536)
+    eng = DedupEngine(device=cuda_device)
+    eng.fingerprint(longer.tobytes(), cuts=[len(longer)])
+    got = eng.fingerprint(data, cuts=cuts)
+    staged = eng._thread().seg.numpy()
+    assert np.array_equal(staged[:len(data)], np.frombuffer(data, np.uint8))
+    assert not staged[len(data):len(data) + SEGMENT_SLACK].any()
+    sliced = stage_copy._copiers() > 1
+    assert eng.stage_counts["stage_sliced"] == (2 if sliced else 0)
+    monkeypatch.setattr(stage_copy, "_SLICE_MIN", 1 << 40)
+    want = DedupEngine(device=cuda_device).fingerprint(data, cuts=cuts)
+    assert got[0] == want[0]
+    assert np.array_equal(got[1], want[1])
+    assert np.array_equal(got[2], want[2])
+    raw = got[1].astype(">u4").tobytes()
+    for i in range(0, len(got[0]), 97):
+        off, ln = got[0][i]
+        assert raw[i * 20:(i + 1) * 20] == hashlib.sha1(
+            data[off:off + ln]).digest()
 
 
 def _on_card(dev, seg: bytes, offsets, lens):

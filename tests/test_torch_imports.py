@@ -77,7 +77,8 @@ def test_every_module_is_listed():
                  "client.tracker_client", "client.storage_client",
                  "client.client", "trace", "common.fileid", "common.mime",
                  "common.http_token", "monitor", "cli", "bench",
-                 "bench_configs", "tools.bench_index_scale"):
+                 "bench_configs", "tools.bench_index_scale",
+                 "dedup.stage_copy", "tools.stage_copy_rate"):
         assert "fastdfs_tpu_torch." + want in names
 
 
@@ -128,8 +129,9 @@ def test_kernel_sources_and_build_are_keyed():
     from fastdfs_tpu_torch.ops import _build
 
     names = [p.name for p in _build.sources()]
-    assert names == ["gear_cdc.cu", "gf_matmul.cu", "index_query.cu",
-                     "minhash_sig.cu", "minhash_survivor.cu", "sha1.cu"]
+    assert names == ["gear_cdc.cu", "gf_matmul.cu", "host_copy.cu",
+                     "index_query.cu", "minhash_sig.cu",
+                     "minhash_survivor.cu", "sha1.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()  # stable key for unchanged sources

@@ -39,6 +39,9 @@ def _one_torch_thread():
 GEO = dict(min_size=64, avg_bits=8, max_size=1024, row_tile=32)
 _I64 = struct.Struct(">q")
 _TIMING = ("lock_wait_us", "engine_us")
+# The port's own counters in ``stats`` (how the engine's staging copy
+# ran), which the reference does not keep.
+_STAGE = ("stage_sliced", "stage_inline", "stage_pool_slices")
 
 
 def _hashlib_batch_sha1(chunks):
@@ -207,10 +210,31 @@ def test_opcode_constants_match_reference():
     assert tproto.Header(5, 100).pack() == jproto.Header(5, 100).pack()
 
 
+def _shared(name, answer):
+    """An answer without the port's own counters."""
+    if name != "stats":
+        return answer
+    status, stats = answer
+    return status, {k: v for k, v in stats.items() if k not in _STAGE}
+
+
 @pytest.mark.parametrize("name", _NAMES)
 def test_response_matches_reference(runs, name):
     got, want, _, _, _ = runs
-    assert got[name] == want[name]
+    assert _shared(name, got[name]) == want[name]
+
+
+def test_stats_carry_the_staging_copy_counters(runs):
+    """Every body of the sequence is small: each fingerprint request is
+    copied inline, none in slices (this sidecar runs no warm-up)."""
+    got, want, _, _, _ = runs
+    status, stats = got["stats"]
+    fingerprints = sum(1 for name, _, _ in _requests()
+                       if name.startswith("fingerprint_"))
+    assert status == 0 and not set(_STAGE) & set(want["stats"][1])
+    assert {k: stats[k] for k in _STAGE} == {
+        "stage_sliced": 0, "stage_inline": fingerprints,
+        "stage_pool_slices": 0}
 
 
 def test_responses_carry_the_expected_verdicts(runs):
