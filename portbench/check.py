@@ -1,32 +1,29 @@
 """The comparison that decides a run's ``correct``.
 
-Every call of the window is held to its rows: as many spans, digests and
-signatures as the cuts make chunks, the digests five 32-bit words a row
-and the signatures one a permutation.  A sample of its calls, drawn from
-the seed, is held whole to the plain reference
-(``reference.answer``): every span, every 20-byte SHA-1 digest and every
-64-permutation signature.  The first call of each segment in the window
-is always in the sample, so that every segment the window sends is
-compared.
+Every call of the window is held to its rows: the cell's call says what
+rows an answer has (``rows``) and what rows each item's answer must have
+(``expected_rows``), and a call whose rows differ counts under the call's
+``ROWS_WRONG``.  A sample of its calls, drawn from the seed, is held
+whole to the plain reference (the call's ``reference``), by the call's
+``compare``.  The first call of each item in the window is always in
+the sample, so that every item the window sends is compared.
 
-Each number compared has the limit 0: the engine's answers are exact
-(the SHA-1 is the chunk's content address, the signatures are the
-sketch's specification), so one differing chunk is a wrong answer.
+Every cell also counts the calls that raised or never returned
+(``calls_failed``) and the items sent but never compared whole
+(``segments_unchecked``).  Each number compared has its limit: these
+two's here, the call's own in its ``LIMITS``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import ModuleType
 
 import numpy as np
 
 LIMITS = {
     "calls_failed": 0,          # calls that raised or never returned
-    "chunk_counts_wrong": 0,    # calls whose rows are not the cuts' chunks
-    "segments_unchecked": 0,    # segments sent but never compared whole
-    "spans_wrong": 0,           # chunks of compared calls, each field
-    "digests_wrong": 0,
-    "sigs_wrong": 0,
+    "segments_unchecked": 0,    # items sent but never compared whole
 }
 
 
@@ -34,12 +31,10 @@ LIMITS = {
 class Kept:
     """One call's answer, kept for the comparison."""
     segment: int
-    spans: list
-    digests: np.ndarray
-    sigs: np.ndarray
+    answer: object
 
 
-def _rows_wrong(got: np.ndarray, want: np.ndarray) -> int:
+def rows_wrong(got: np.ndarray, want: np.ndarray) -> int:
     """Rows of ``want`` that ``got`` does not hold, position by position;
     a missing or extra row counts as one."""
     got = np.asarray(got).reshape(len(got), -1)
@@ -51,55 +46,44 @@ def _rows_wrong(got: np.ndarray, want: np.ndarray) -> int:
         len(got) - len(want))
 
 
-def rows_of(spans, digests, sigs) -> tuple[int, int, int, int]:
-    """What every call is held to: its spans' count, its digests' and its
-    signatures' rows, and the signatures' width; -1 for an array that is
-    not 32-bit words in rows (digests five words wide)."""
-    def rows(a, width=None):
-        a = np.asarray(a)
-        if a.ndim != 2 or a.dtype.itemsize != 4 or a.dtype.kind not in "iu" \
-                or (width is not None and a.shape[1] != width):
-            return -1, -1
-        return a.shape
-
-    return (len(spans), rows(digests, 5)[0], *rows(sigs))
+def limits(call: ModuleType) -> dict[str, int]:
+    """Every number a cell with ``call`` compares, with its limit, in the
+    order the check prints them."""
+    own = dict(call.LIMITS)
+    return {"calls_failed": LIMITS["calls_failed"],
+            call.ROWS_WRONG: own.pop(call.ROWS_WRONG),
+            "segments_unchecked": LIMITS["segments_unchecked"], **own}
 
 
-def compare(kept: list[Kept], counts: list[tuple[int, tuple]],
-            expected_counts: list[int], perms: int, answers: dict,
-            failed_calls: int, segments_sent: set[int]) -> dict[str, int]:
-    """The numbers compared: ``counts`` holds (segment, ``rows_of`` its
-    answer) for every call that returned; ``answers`` maps a segment to
-    its ``reference.Answer``."""
-    wrong_counts = sum(
-        1 for s, rows in counts
-        if rows != (expected_counts[s],) * 3 + (perms,))
-    spans = digests = sigs = 0
-    for k in kept:
-        ans = answers[k.segment]
-        got = np.asarray(k.spans, dtype=np.int64).reshape(-1, 2)
-        spans += _rows_wrong(got, np.stack([ans.offsets, ans.lens], axis=1))
-        digests += _rows_wrong(np.asarray(k.digests, dtype=np.uint32),
-                               ans.digests)
-        sigs += _rows_wrong(np.asarray(k.sigs, dtype=np.uint32), ans.sigs)
+def compare(call: ModuleType, kept: list[Kept],
+            counts: list[tuple[int, tuple]], expected: list[tuple],
+            answers: dict, failed_calls: int, segments_sent: set[int]
+            ) -> dict[str, int]:
+    """The numbers compared, in ``limits``' order: ``counts`` holds (item,
+    ``call.rows`` of its answer) for every call that returned,
+    ``expected`` each item's ``call.expected_rows``, and ``answers`` maps
+    an item to its ``call.reference``."""
     checked = {k.segment for k in kept}
-    return {
+    numbers = {
         "calls_failed": failed_calls,
-        "chunk_counts_wrong": wrong_counts,
+        call.ROWS_WRONG: sum(1 for s, rows in counts if rows != expected[s]),
         "segments_unchecked": len(segments_sent - checked),
-        "spans_wrong": spans,
-        "digests_wrong": digests,
-        "sigs_wrong": sigs,
+        **call.compare(kept, answers),
     }
+    want = limits(call)
+    if numbers.keys() != want.keys():
+        raise ValueError(f"the call compares {sorted(numbers)}, its limits "
+                         f"name {sorted(want)}")
+    return {k: numbers[k] for k in want}
 
 
-def holds(numbers: dict[str, int]) -> bool:
-    return all(numbers[k] <= LIMITS[k] for k in LIMITS)
+def holds(numbers: dict[str, int], limits: dict[str, int]) -> bool:
+    return all(numbers[k] <= limits[k] for k in limits)
 
 
-def lines(numbers: dict[str, int]) -> list[str]:
-    return [f"check {k} {numbers[k]} limit {LIMITS[k]}" for k in LIMITS]
+def lines(numbers: dict[str, int], limits: dict[str, int]) -> list[str]:
+    return [f"check {k} {numbers[k]} limit {limits[k]}" for k in limits]
 
 
-def as_json(numbers: dict[str, int]) -> dict:
-    return {k: {"value": numbers[k], "limit": LIMITS[k]} for k in LIMITS}
+def as_json(numbers: dict[str, int], limits: dict[str, int]) -> dict:
+    return {k: {"value": numbers[k], "limit": limits[k]} for k in limits}

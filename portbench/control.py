@@ -62,7 +62,7 @@ def main(argv=None) -> int:
     import torch
 
     cell = manifest.cell(args.workload)
-    d = run.dedup_config(cell.config)
+    d = cell.dedup
     device = torch.device("cuda", 0) if torch.cuda.is_available() \
         else torch.device("cpu")
     result, lines = run.run_cell(cell, args.seed, args.seconds, False, device,

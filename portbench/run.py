@@ -6,18 +6,22 @@
 from the root of a checkout on a machine with the cards the cell asks
 for.  One process is one run:
 
-1. set-up: the cell's files (``manifest``), the kernels (loaded from the
-   program's build directory inside the checkout; built there on a
-   checkout's first run), the pool of segments made from the seed
-   (``corpus``) and the daemon's cuts of each (``cdc``), and a warm-up
-   call on every stream thread;
+1. set-up: the cell's files (``manifest``), the system under test (the
+   cell's call's ``make_system``: for ``fingerprint_cuts``, one shared
+   ``DedupEngine`` with its kernels loaded from the program's build
+   directory inside the checkout, built there on a checkout's first
+   run), the pool of items made from the seed by the cell's corpus
+   (``corpus``) and prepared by its call (``prepare``: for
+   ``fingerprint_cuts``, the daemon's cuts of each segment, ``cdc``), and
+   a warm-up call on every stream thread;
 2. the window: one thread for each of the deployment's concurrent calls
-   (``Cell.streams``), each in a closed loop, calls
-   ``DedupEngine.fingerprint(data, cuts)`` on one shared engine, as the
-   sidecar's connection threads do, each taking the next segment of a
-   seeded order over the pool, for ``--seconds``;
-3. the check: the plain reference works out every segment's answer again
-   and ``check.compare`` holds the window's answers to it;
+   (``Cell.streams``), each in a closed loop, makes the cell's call (for
+   ``fingerprint_cuts``, ``DedupEngine.fingerprint(data, cuts)``) on the
+   one shared system, as the sidecar's connection threads do, each
+   taking the next item of a seeded order over the pool, for
+   ``--seconds``;
+3. the check: the call's plain reference works out every item's answer
+   again and ``check.compare`` holds the window's answers to it;
 4. the result: the cell's end-to-end metrics (``--trace 0``) or its
    per-layer metrics from a ``torch.profiler`` trace of the window
    (``--trace 1``), each read by its reader in ``metrics/``, as one JSON
@@ -44,10 +48,11 @@ import sys  # noqa: E402
 import threading  # noqa: E402
 from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 from dataclasses import dataclass, field  # noqa: E402
+from types import ModuleType  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from portbench import cdc, check, corpus, manifest, reference  # noqa: E402
+from portbench import check, corpus, manifest  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "fastdfs_tpu")
 # A call joins the comparison with odds 1 in CHECK_ODDS, drawn from the
@@ -78,37 +83,23 @@ def process_seconds() -> float:
 
 
 @dataclass
-class Segment:
-    data: bytes
-    cuts: list[int]
-    lens: np.ndarray
-
-
-@dataclass
 class Run:
     """What a metric's reader reads."""
     setup_s: float
-    pool: list[Segment]
+    pool: list                 # the items the call's ``prepare`` made
     segment: np.ndarray        # pool index of each call that returned
     latency_s: np.ndarray      # each such call's seconds, call to return
     window_s: float            # first call to last return
     bytes_done: int
     dedup: dict
-    answers: dict = field(default_factory=dict)
+    answers: dict = field(default_factory=dict)   # the call's reference
     trace: object = None       # trace.Trace of a --trace 1 run
     peak: dict | None = None   # roofline.PEAKS entry of the card
 
 
-def dedup_config(config: dict) -> dict:
-    d = dict(min_size=2048, avg_bits=13, max_size=65536, num_perms=64,
-             shingle=5)
-    d.update(config.get("dedup", {}))
-    return d
-
-
-def make_pool(cell: manifest.Cell, seed: int, device, log) -> list[Segment]:
-    """The pool: the segments made from the seed on the host's threads,
-    then cut with the daemon's rule on ``device``."""
+def make_pool(cell: manifest.Cell, seed: int, device, log) -> list:
+    """The pool: the items made from the seed by the cell's corpus on the
+    host's threads, then prepared by the cell's call on ``device``."""
     cfg, traffic = cell.config, cell.traffic
     seg_bytes = int(traffic["segment_bytes"])
     if seg_bytes > int(cfg["dedup_segment_bytes"]):
@@ -116,19 +107,17 @@ def make_pool(cell: manifest.Cell, seed: int, device, log) -> list[Segment]:
             f"segments of {seg_bytes} bytes exceed the deployment's "
             f"dedup_segment_bytes {cfg['dedup_segment_bytes']}")
     n = int(cfg["corpus_bytes"]) // seg_bytes
-    d = dedup_config(cfg)
     t = time.monotonic()
-    made = corpus.Corpus(cfg["corpus"], seg_bytes, n, seed)
+    made = corpus.Corpus(cfg["corpus"], seg_bytes, n, seed, cell.corpus)
     with ThreadPoolExecutor(max_workers=min(8, n)) as ex:
         datas = list(ex.map(made.segment, range(n)))
     t_made = time.monotonic() - t
     t = time.monotonic()
-    cuts = [cdc.chunk_cuts(b, d["min_size"], d["avg_bits"], d["max_size"],
-                           device) for b in datas]
-    log(f"set-up: pool of {n} segments of {seg_bytes} bytes made in "
-        f"{t_made:.3f} s, cut in {time.monotonic() - t:.3f} s")
-    return [Segment(b, c, reference.spans_of(c)[1])
-            for b, c in zip(datas, cuts)]
+    pool = cell.call.prepare(cell, datas, device)
+    log(f"set-up: pool of {n} segments of up to {seg_bytes} bytes "
+        f"({sum(map(len, datas))} in all) made in {t_made:.3f} s, "
+        f"prepared in {time.monotonic() - t:.3f} s")
+    return pool
 
 
 def call_order(seed: int, n: int) -> np.ndarray:
@@ -143,26 +132,15 @@ def check_draw(seed: int) -> np.ndarray:
     return rng.integers(0, CHECK_ODDS, _DRAW) == 0
 
 
-def make_engine(cell: manifest.Cell, device):
-    """The system under test: one shared engine, as one sidecar holds."""
-    from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
-
-    d = dedup_config(cell.config)
-    cfg = DedupConfig(min_size=d["min_size"], avg_bits=d["avg_bits"],
-                      max_size=d["max_size"], num_perms=d["num_perms"],
-                      shingle=d["shingle"], fan_out=cell.chips)
-    engine = DedupEngine(cfg, device=device)
-    engine.warmup()
-    return engine
-
-
 class Window:
     """The streams of one window and what they brought back."""
 
-    def __init__(self, system, pool: list[Segment], streams: int,
-                 seed: int):
+    def __init__(self, system, call: ModuleType, pool: list,
+                 expected: list[tuple], streams: int, seed: int):
         self.system = system
+        self.call = call
         self.pool = pool
+        self.expected = expected
         self.streams = streams
         self.order = call_order(seed, len(pool))
         self.draw = check_draw(seed)
@@ -194,18 +172,18 @@ class Window:
         self.warm_deadline = time.perf_counter() + WARM_S
 
     def _call(self, s: int, what: str):
-        seg = self.pool[s]
         try:
-            return self.system.fingerprint(seg.data, seg.cuts)
+            return self.call.call(self.system, self.pool[s])
         except Exception as e:  # noqa: BLE001  a wrong answer, counted
             with self.lock:
                 self.errors.append(f"{what} on segment {s}: {e!r}")
             return None
 
     def _stream(self, k: int) -> None:
-        # Warm-up: this thread's staging grows to the largest chunk table
-        # of the pool, then every stream runs the closed loop for WARM_S.
-        big = max(range(len(self.pool)), key=lambda s: len(self.pool[s].cuts))
+        # Warm-up: this thread's staging grows to the largest answer of
+        # the pool (the most rows: for ``fingerprint_cuts``, the largest
+        # chunk table), then every stream runs the closed loop for WARM_S.
+        big = max(range(len(self.pool)), key=lambda s: self.expected[s])
         self._call(big, "warm-up")
         self.grown.wait(BARRIER_S)
         s = k
@@ -223,11 +201,10 @@ class Window:
             if out is None:
                 continue
             t1 = time.perf_counter()
-            spans, digests, sigs = out
-            records.append((s, check.rows_of(spans, digests, sigs), t0, t1))
+            records.append((s, self.call.rows(out), t0, t1))
             if keep:
                 with self.lock:
-                    self.kept.append(check.Kept(s, spans, digests, sigs))
+                    self.kept.append(check.Kept(s, out))
         with self.lock:
             self.records.extend(records)
 
@@ -271,19 +248,21 @@ def log_stderr(msg: str) -> None:
 def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
              device, system=None, log=log_stderr) -> tuple[dict, list[str]]:
     """One run of ``cell``: the result's object and the check's lines.
-    ``device`` is a ``torch.device``; ``system`` stands in for the engine
-    (the control)."""
+    ``device`` is a ``torch.device``; ``system`` stands in for the call's
+    system under test (the control)."""
     import torch
 
+    call = cell.call
     t = time.monotonic()
     on_card = device.type == "cuda"
     log(f"set-up: torch and the card ready {process_seconds():.3f} s "
         f"after the process started")
     if system is None:
-        system = make_engine(cell, device)
-    log(f"set-up: kernels and engine ready in {time.monotonic() - t:.3f} s")
+        system = call.make_system(cell, device)
+    log(f"set-up: the system under test ready in {time.monotonic() - t:.3f} s")
     pool = make_pool(cell, seed, device, log)
-    win = Window(system, pool, cell.streams, seed)
+    expected = [call.expected_rows(item, cell) for item in pool]
+    win = Window(system, call, pool, expected, cell.streams, seed)
     prof = None
     span = None
     if traced:
@@ -319,16 +298,15 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
     ends = [r[3] for r in records]
     window_s = (max(ends) if ends else win.deadline) - start
 
-    # The check, after the window: the reference for every segment.
+    # The check, after the window: the reference for every item.
     t = time.monotonic()
-    d = dedup_config(cell.config)
     with ThreadPoolExecutor(max_workers=min(8, len(pool))) as ex:
         answers = dict(enumerate(ex.map(
-            lambda seg: reference.answer(seg.data, seg.cuts, d["shingle"],
-                                         d["num_perms"]), pool)))
+            lambda item: call.reference(item, cell), pool)))
+    limits = check.limits(call)
     numbers = check.compare(
-        kept, [(r[0], r[1]) for r in records], [len(s.cuts) for s in pool],
-        d["num_perms"], answers, len(win.errors), set(range(len(pool))))
+        call, kept, [(r[0], r[1]) for r in records], expected, answers,
+        len(win.errors), set(range(len(pool))))
     log(f"check: reference over {len(pool)} segments in "
         f"{time.monotonic() - t:.3f} s, {len(kept)} calls compared whole, "
         f"{len(records)} by their rows")
@@ -339,25 +317,20 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
         by = np.bincount(sec, weights=[len(pool[r[0]].data) for r in records])
         log("window GB/s by second: "
             + " ".join(f"{v / 1e9:.2f}" for v in by))
-    for i, seg in enumerate(pool):
-        lat = [r[3] - r[2] for r in records if r[0] == i]
-        log(f"segment {i}: {len(seg.cuts)} chunks, "
-            f"{int((seg.lens == d['max_size']).sum())} of max size, "
-            f"{answers[i].survivors} survivors, {len(lat)} calls, median "
-            f"{np.median(lat) * 1e3 if lat else float('nan'):.3f} ms")
 
     run = Run(setup_s=setup_s, pool=pool,
               segment=np.array([r[0] for r in records], np.int64),
               latency_s=np.array([r[3] - r[2] for r in records]),
               window_s=window_s,
               bytes_done=sum(len(pool[r[0]].data) for r in records),
-              dedup=d, answers=answers)
+              dedup=cell.dedup, answers=answers)
     device_info = {"platform": "gpu" if on_card else "cpu",
                    "kind": (torch.cuda.get_device_name(device) if on_card
                             else "cpu"),
                    "count": cell.chips, "memory_peak_bytes": peak_bytes}
-    result = {"correct": check.holds(numbers), "attempted": win.attempted,
-              "failed": len(win.errors) + numbers["chunk_counts_wrong"]}
+    result = {"correct": check.holds(numbers, limits),
+              "attempted": win.attempted,
+              "failed": len(win.errors) + numbers[call.ROWS_WRONG]}
     if traced:
         from portbench import roofline
         from portbench.trace import Trace
@@ -367,13 +340,11 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
         metrics = cell.per_layer
         device_info["busy_s"] = run.trace.busy_s
         device_info["window_s"] = run.trace.window_s
-        if run.peak:
-            chain = max(roofline.sha1_chain_seconds(s.lens, run.peak)
-                        for s in pool)
-            log(f"sha1 chain bound (assumed latency, not a peak): "
-                f"{chain * 1e3:.4f} ms a segment")
     else:
         metrics = cell.end_to_end
+    if hasattr(call, "notes"):
+        for line in call.notes(run):
+            log(line)
     values = {}
     for m in metrics:
         v = m.reader.read(run)
@@ -384,8 +355,8 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
     if traced:
         result["breakdown"] = {"device_ops": run.trace.device_ops(),
                                "idle_gaps": run.trace.idle_gaps()}
-    result["checks"] = check.as_json(numbers)
-    return result, check.lines(numbers)
+    result["checks"] = check.as_json(numbers, limits)
+    return result, check.lines(numbers, limits)
 
 
 def forbidden_modules() -> list[str]:

@@ -7,6 +7,8 @@ import json
 import subprocess
 import sys
 
+import pytest
+
 from portbench import manifest
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "fastdfs_tpu"}
@@ -51,3 +53,24 @@ def test_forbidden_names_are_whole_top_level_names(monkeypatch):
                                                "jaxtyping"}
     monkeypatch.setitem(sys.modules, "jaxlib.xla", sys)
     assert "jaxlib" in run.forbidden_modules()
+
+
+def workloads() -> list[str]:
+    bench = json.loads((manifest.ROOT / "BENCHMARK.json").read_text())
+    return [w["name"] for w in bench["workloads"]]
+
+
+@pytest.mark.parametrize("name", workloads())
+def test_each_calls_reference_loads_nothing_of_the_program(name):
+    """The plain answer of the cell's call for an item of its pool, made
+    and prepared on the CPU, in a process that never loads the program or
+    JAX."""
+    names = loaded(
+        "from portbench import manifest, run\n"
+        f"cell = manifest.cell({name!r})\n"
+        "cell.traffic = dict(cell.traffic, segment_bytes=1 << 20)\n"
+        "cell.config = dict(cell.config, corpus_bytes=1 << 20)\n"
+        "item = run.make_pool(cell, 7, 'cpu', lambda msg: None)[0]\n"
+        "assert len(cell.call.reference(item, cell).digests)")
+    assert "fastdfs_tpu_torch" not in names
+    assert not names & FORBIDDEN
