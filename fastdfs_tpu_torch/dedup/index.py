@@ -5,7 +5,10 @@ module pulls in JAX through its import of ``EMPTY``).  The exact index is
 the dedup verdict authority; the LSH index serves near-duplicate queries.
 Snapshot formats are byte-compatible with the reference in both
 directions: ``SIG_SPEC_VERSION = 2`` signatures and the columnar v2 exact
-index.
+index.  Beyond the reference: the names of the index's spans in the
+process's span ring (``trace.SPAN_RING``), the stages a query writes
+into the recorder it is given, and each index's ``counts()``, which the
+sidecar's ``stats`` answer carries.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import os
 from typing import Any, Sequence
 
 import numpy as np
+
+from fastdfs_tpu_torch.trace import SPAN_RING
 
 # The sketch's empty-segment sentinel (ops.minhash.EMPTY), kept here so
 # the index stays free of torch.
@@ -34,6 +39,19 @@ _OFF_BARE = -(1 << 62)
 # Snapshot format version for the exact index (v2 = columnar arrays;
 # v1 = flat digest bytes + per-entry json refs).  load() reads both.
 _EXACT_SPEC = 2
+
+# The index's spans in the process's span ring, children of the caller's
+# call: the sidecar writes the inserts, adds and removals around its
+# calls, and ``MinHashLSHIndex.query`` its own stages into the recorder
+# it is given (the band lookups; the signature matrix's rebuild, only
+# where an add or a compaction dropped it; the scoring).
+EXACT_INSERT = SPAN_RING.code("index.exact_insert")
+EXACT_REMOVE = SPAN_RING.code("index.exact_remove")
+NEAR_ADD = SPAN_RING.code("index.near_add")
+NEAR_REMOVE = SPAN_RING.code("index.near_remove")
+NEAR_CANDIDATES = SPAN_RING.code("index.near_candidates")
+NEAR_STACK = SPAN_RING.code("index.near_stack")
+NEAR_SCORE = SPAN_RING.code("index.near_score")
 
 
 class ExactDigestIndex:
@@ -64,9 +82,14 @@ class ExactDigestIndex:
         self._carriers: list[Any] = []
         self._carrier_ids: dict[Any, int] = {}
         self._len = 0
+        self.merges = 0                                 # delta folds
 
     def __len__(self) -> int:
         return self._len
+
+    def counts(self) -> dict[str, int]:
+        """The entries waiting in the delta and the merges so far."""
+        return {"exact_delta": len(self._delta), "exact_merges": self.merges}
 
     # -- internals ---------------------------------------------------------
 
@@ -126,6 +149,7 @@ class ExactDigestIndex:
         self._base_dead = np.zeros(len(dig), dtype=bool)
         self._dead = 0
         self._delta = {}
+        self.merges += 1
         self._compact_carriers()
 
     def _compact_carriers(self) -> None:
@@ -314,9 +338,18 @@ class MinHashLSHIndex:
         # the exact index is engineered for.
         self._ids_by_ref: dict[Any, list[int]] = {}
         self._dead = 0  # tombstoned rows (compacted when they dominate)
+        self.stack_rebuilds = 0   # times the signature matrix was built
+        self.candidates = 0       # band candidates (tombstones too), summed
 
     def __len__(self) -> int:
         return len(self._refs)
+
+    def counts(self) -> dict[str, int]:
+        """Rows (tombstones included) and tombstones, the matrix's
+        rebuilds, and the candidates all queries scored."""
+        return {"near_rows": len(self._refs), "near_dead": self._dead,
+                "near_stack_rebuilds": self.stack_rebuilds,
+                "near_candidates": self.candidates}
 
     def _band_keys(self, sig: np.ndarray) -> list[bytes]:
         return [sig[b * self.rows:(b + 1) * self.rows].tobytes()
@@ -345,7 +378,8 @@ class MinHashLSHIndex:
         return item
 
     def query(self, sig: np.ndarray, top_k: int = 5,
-              min_similarity: float = 0.5) -> list[tuple[Any, float]]:
+              min_similarity: float = 0.5, spans=None
+              ) -> list[tuple[Any, float]]:
         """Top-k near-dup candidates with signature-agreement scores.
 
         Scoring is plain numpy: a per-query candidate set is at most a
@@ -354,6 +388,11 @@ class MinHashLSHIndex:
         backend), turning a retrieval sweep into dispatch overhead.  The
         mesh-sharded query path uses the :attr:`signatures` matrix with
         its own jitted collectives instead.
+
+        ``spans``, a ``trace.CallSpans`` recorder with a call open, gets
+        the query's stages as children: ``index.near_candidates``, then
+        ``index.near_stack`` where the matrix is rebuilt, then
+        ``index.near_score``.
         """
         sig = np.asarray(sig, dtype=np.uint32)
         if (sig == EMPTY).all():
@@ -361,16 +400,29 @@ class MinHashLSHIndex:
         cand: set[int] = set()
         for b, key in enumerate(self._band_keys(sig)):
             cand.update(self._buckets[b].get(key, ()))
-        if not cand:
+        self.candidates += len(cand)
+        # Tombstones leave before the ranking: a deleted file's rows must
+        # not take places of the top k from live ones (the JAX package
+        # ranks them and drops them after, so a file uploaded and deleted
+        # again and again crowds its own report empty).
+        refs = self._refs
+        ids = np.fromiter((i for i in cand if refs[i] is not None),
+                          dtype=np.int64)
+        if spans is not None:
+            spans.end(NEAR_CANDIDATES)
+        if not len(ids):
             return []
-        ids = np.fromiter(cand, dtype=np.int64)
+        rebuilt = self._sigs_cache is None
         sigs = self.signatures
+        if spans is not None and rebuilt:
+            spans.end(NEAR_STACK)
         scores = (sigs[ids] == sig[None, :]).mean(axis=1, dtype=np.float32)
         order = np.argsort(-scores)[:top_k]
-        return [(self._refs[int(ids[i])], float(scores[i]))
-                for i in order
-                if scores[i] >= min_similarity
-                and self._refs[int(ids[i])] is not None]
+        out = [(refs[int(ids[i])], float(scores[i])) for i in order
+               if scores[i] >= min_similarity]
+        if spans is not None:
+            spans.end(NEAR_SCORE)
+        return out
 
     def remove(self, ref: Any) -> int:
         """Tombstone every item carrying ``ref`` (deleted file); queries
@@ -436,6 +488,7 @@ class MinHashLSHIndex:
         if self._sigs_cache is None:
             self._sigs_cache = (np.stack(self._rows) if self._rows
                                 else np.zeros((0, self.num_perms), np.uint32))
+            self.stack_rebuilds += 1
         return self._sigs_cache
 
     # -- persistence ------------------------------------------------------

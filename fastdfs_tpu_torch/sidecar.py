@@ -43,6 +43,13 @@ same snapshot files and formats as the reference
 (``<state_dir>/sidecar_files.json``, ``sidecar_exact.npz``,
 ``sidecar_near.npz``), so either sidecar resumes the other's state.
 
+``DedupSidecar.handle(cmd, body)`` answers one request as the socket
+loop does, and ``commit_chunks`` indexes one stored file as
+``commitchunks`` does.  Every fingerprint, ``commitchunks``, near-dup and
+``forget`` request writes its stages into the process's span ring
+(``sidecar.*`` roots, the index's ``index.*`` stages beneath them); the
+``stats`` answer adds the indexes' counts.
+
 Run: ``python -m fastdfs_tpu_torch.sidecar --socket /path/dedup.sock``
 (``--platform cpu`` runs the plain PyTorch path).
 """
@@ -65,12 +72,13 @@ import torch
 from fastdfs_tpu_torch.common.protocol import (HEADER_SIZE, StorageCmd,
                                                pack_header, unpack_header)
 from fastdfs_tpu_torch.dedup.engine import DedupConfig, DedupEngine
+from fastdfs_tpu_torch.dedup import index as idx
 from fastdfs_tpu_torch.dedup.index import ExactDigestIndex
 from fastdfs_tpu_torch.ops import SEGMENT_SLACK
 from fastdfs_tpu_torch.ops.cuda_sha1 import sha1_ragged_cuda
 from fastdfs_tpu_torch.ops.gear_cdc import CDC_SPEC_VERSION
 from fastdfs_tpu_torch.ops.sha1 import digest_bytes
-from fastdfs_tpu_torch.trace import SPAN_RING
+from fastdfs_tpu_torch.trace import SPAN_RING, CallSpans
 
 _I64 = struct.Struct(">q")
 # DEDUP_VERIFY's per-chunk header: 8B BE length + 20B expected raw SHA1.
@@ -79,6 +87,19 @@ _VERIFY_ENTRY = np.dtype([("length", ">i8"), ("digest", "S20")])
 _SESSION_TTL = 600.0  # seconds before an uncommitted session is reaped
 # How many of the newest spans the ``trace`` commit subcommand returns.
 TRACE_SPANS = 4096
+
+# The request handlers' spans in the process's span ring: one root a
+# request, its children one after another from its start to its end (the
+# index's stages are named in ``dedup.index``).  A fingerprint request's
+# ``sidecar.engine`` holds the engine's own call, a root of its own.
+_FINGERPRINT_ROOT = "sidecar.fingerprint"
+_COMMIT_ROOT = "sidecar.commit"
+_NEARDUPS_ROOT = "sidecar.neardups"
+_FORGET_ROOT = "sidecar.forget"
+_PARSE = SPAN_RING.code("sidecar.parse")
+_ENGINE = SPAN_RING.code("sidecar.engine")
+_LOCK_WAIT = SPAN_RING.code("sidecar.lock_wait")
+_RESPOND = SPAN_RING.code("sidecar.respond")
 
 
 class _Session:
@@ -120,6 +141,7 @@ class DedupSidecar:
         self.by_file: dict[str, str] = {}     # file id -> sha1
         self._sessions: dict[int, _Session] = {}  # session id -> pending
         self._lock = threading.Lock()
+        self._recorders = threading.local()
         self._stop = threading.Event()
         self._listener: socket.socket | None = None
         # RSS watchdog (see _housekeeping_loop): 0 disables; restart_argv
@@ -132,7 +154,7 @@ class DedupSidecar:
         # engine is time actually inside engine.fingerprint.  Read via
         # the `stats` commit subcommand (bench stage attribution);
         # the answer adds the engine's staging-copy counters
-        # (DedupEngine.stage_counts).
+        # (DedupEngine.stage_counts) and the indexes' counts().
         self.stats = {"fingerprint_bytes": 0, "chunks": 0, "requests": 0,
                       "lock_wait_us": 0, "engine_us": 0}
         if state_dir:
@@ -222,8 +244,63 @@ class DedupSidecar:
 
     # -- request handlers --------------------------------------------------
 
+    def handle(self, cmd: int, body: bytes) -> tuple[int, bytes]:
+        """One request's status and response body, as the socket loop
+        sends them back; counts ``requests``."""
+        self.stats["requests"] += 1
+        if cmd == StorageCmd.DEDUP_FINGERPRINT:
+            return self._fingerprint(body)
+        if cmd == StorageCmd.DEDUP_FINGERPRINT_CUTS:
+            return self._fingerprint(body, with_cuts=True)
+        if cmd == StorageCmd.DEDUP_QUERY:
+            return self._query(body)
+        if cmd == StorageCmd.DEDUP_COMMIT:
+            return self._commit(body)
+        if cmd == StorageCmd.DEDUP_NEARDUPS:
+            return self._neardups(body)
+        if cmd == StorageCmd.DEDUP_VERIFY:
+            return self._verify(body)
+        if cmd == StorageCmd.ACTIVE_TEST:
+            return 0, b""
+        return 22, b""
+
+    def _spans(self, root: str) -> CallSpans:
+        """This thread's recorder of ``root`` calls."""
+        recs = getattr(self._recorders, "by_root", None)
+        if recs is None:
+            recs = self._recorders.by_root = {}
+        rec = recs.get(root)
+        if rec is None:
+            rec = recs[root] = CallSpans(SPAN_RING, root)
+        return rec
+
+    def commit_chunks(self, file_id: str, digests, sig) -> None:
+        """Index one stored file: each ``(raw digest, offset)`` chunk
+        attributed to ``file_id`` (a digest already indexed keeps its
+        first carrier) and the file's signature (None: no chunks).  A
+        bulk load calls it with a stored file's chunks; ``commitchunks``
+        makes the same updates (``_index``) with a session's, under the
+        hold of the lock that takes the session, so both build the same
+        state."""
+        rec = self._spans(_COMMIT_ROOT)
+        rec.open()
+        with self._lock:
+            rec.end(_LOCK_WAIT)
+            self._index(rec, file_id, digests, sig)
+
+    def _index(self, rec: CallSpans, file_id: str, digests, sig) -> None:
+        """``commit_chunks``' updates; the caller holds the lock."""
+        for dig, off in digests:
+            self.engine.exact.insert(dig, [file_id, off])
+        rec.end(idx.EXACT_INSERT)
+        if sig is not None:
+            self.engine.near.add(sig, file_id)
+        rec.close(idx.NEAR_ADD)
+
     def _fingerprint(self, body: bytes, with_cuts: bool = False
                      ) -> tuple[int, bytes]:
+        rec = self._spans(_FINGERPRINT_ROOT)
+        rec.open()
         if len(body) < 16:
             return 22, b""
         session_id = _I64.unpack_from(body)[0]
@@ -251,6 +328,7 @@ class DedupSidecar:
                 return 22, b""
         else:
             data = body[16:]
+        rec.end(_PARSE)
         # Pure compute OUTSIDE the lock: engine.fingerprint touches no
         # index state (its docstring is the contract) and its staging is
         # per thread — so concurrent daemon uploads overlap their device
@@ -259,8 +337,10 @@ class DedupSidecar:
         t_start = time.monotonic()
         spans, digests, sigs = self.engine.fingerprint(data, cuts=cuts)
         t_wait = time.monotonic()
+        rec.end(_ENGINE)
         with self._lock:
             t_held = time.monotonic()
+            rec.end(_LOCK_WAIT)
             self.stats["lock_wait_us"] += int((t_held - t_wait) * 1e6)
             self.stats["engine_us"] += int((t_wait - t_start) * 1e6)
             sess = self._sessions.setdefault(session_id, _Session())
@@ -282,7 +362,9 @@ class DedupSidecar:
                 sess.sig = sig if sess.sig is None else np.minimum(sess.sig, sig)
             self.stats["fingerprint_bytes"] += len(data)
             self.stats["chunks"] += len(spans)
-        return 0, b"".join(out)
+        resp = b"".join(out)
+        rec.close(_RESPOND)
+        return 0, resp
 
     def _query(self, body: bytes) -> tuple[int, bytes]:
         sha1_hex = body.decode("ascii", "replace").strip()
@@ -297,42 +379,53 @@ class DedupSidecar:
         if parts == ["trace"]:
             return 0, json.dumps(SPAN_RING.dump("sidecar",
                                                 newest=TRACE_SPANS)).encode()
+        if parts[0] == "commitchunks" and len(parts) == 3:
+            rec = self._spans(_COMMIT_ROOT)
+            rec.open()
+            with self._lock:
+                rec.end(_LOCK_WAIT)
+                sess = self._sessions.pop(_parse_session(parts[1]), None)
+                if sess is not None:
+                    self._index(rec, parts[2], sess.digests, sess.sig)
+            return 0, b""
+        if parts[0] == "forget" and len(parts) == 2:
+            self._forget(parts[1])
+            return 0, b""
         with self._lock:
             if parts[0] == "commitfile" and len(parts) == 3:
                 self.files.setdefault(parts[1], parts[2])
                 self.by_file[parts[2]] = parts[1]
                 return 0, b""
-            if parts[0] == "commitchunks" and len(parts) == 3:
-                sess = self._sessions.pop(_parse_session(parts[1]), None)
-                if sess is not None:
-                    file_id = parts[2]
-                    for dig, off in sess.digests:
-                        self.engine.exact.insert(dig, [file_id, off])
-                    if sess.sig is not None:
-                        self.engine.near.add(sess.sig, file_id)
-                return 0, b""
             if parts[0] == "stats" and len(parts) == 1:
                 return 0, json.dumps({**self.stats,
-                                      **self.engine.stage_counts}).encode()
+                                      **self.engine.stage_counts,
+                                      **self.engine.exact.counts(),
+                                      **self.engine.near.counts()}).encode()
             if parts[0] == "abort" and len(parts) == 2:
                 self._sessions.pop(_parse_session(parts[1]), None)
                 return 0, b""
-            if parts[0] == "forget" and len(parts) == 2:
-                sha1 = self.by_file.pop(parts[1], None)
-                if sha1 is not None and self.files.get(sha1) == parts[1]:
-                    del self.files[sha1]
-                self.engine.near.remove(parts[1])
-                # Exact attributions for the deleted file leave the index
-                # too (they would otherwise accumulate in RAM + snapshots
-                # forever).  The daemon's ChunkStore owns true chunk
-                # refcounts; this index only answers "who first carried
-                # it", so dropping the tombstoned carrier is safe — a
-                # later upload of the same chunk re-attributes it.  One
-                # vectorized pass over the index's carrier column — no
-                # per-file digest-list side table in RAM.
-                self.engine.exact.remove_by_carrier(parts[1])
-                return 0, b""
         return 22, b""
+
+    def _forget(self, file_id: str) -> None:
+        rec = self._spans(_FORGET_ROOT)
+        rec.open()
+        with self._lock:
+            rec.end(_LOCK_WAIT)
+            sha1 = self.by_file.pop(file_id, None)
+            if sha1 is not None and self.files.get(sha1) == file_id:
+                del self.files[sha1]
+            self.engine.near.remove(file_id)
+            rec.end(idx.NEAR_REMOVE)
+            # Exact attributions for the deleted file leave the index
+            # too (they would otherwise accumulate in RAM + snapshots
+            # forever).  The daemon's ChunkStore owns true chunk
+            # refcounts; this index only answers "who first carried
+            # it", so dropping the tombstoned carrier is safe — a
+            # later upload of the same chunk re-attributes it.  One
+            # vectorized pass over the index's carrier column — no
+            # per-file digest-list side table in RAM.
+            self.engine.exact.remove_by_carrier(file_id)
+            rec.close(idx.EXACT_REMOVE)
 
     def _verify(self, body: bytes) -> tuple[int, bytes]:
         """DEDUP_VERIFY (136): batched chunk-integrity check for the
@@ -399,17 +492,22 @@ class DedupSidecar:
         file_id = body.decode("utf-8", "replace").strip()
         if not file_id:
             return 22, b""
+        rec = self._spans(_NEARDUPS_ROOT)
+        rec.open()
         with self._lock:
+            rec.end(_LOCK_WAIT)
             sig = self.engine.near.signature_of(file_id)
             if sig is None:
                 return 61, b""
             cfg = self.engine.config
             pairs = self.engine.near.query(
                 sig, top_k=cfg.near_dup_top_k * 2 + 1,
-                min_similarity=cfg.near_dup_threshold)
+                min_similarity=cfg.near_dup_threshold, spans=rec)
         lines = [f"{ref} {score:.4f}" for ref, score in pairs
                  if ref != file_id][:self.engine.config.near_dup_top_k * 2]
-        return 0, "\n".join(lines).encode()
+        resp = "\n".join(lines).encode()
+        rec.close(_RESPOND)
+        return 0, resp
 
     def _reap_stale_sessions(self) -> None:
         cutoff = time.monotonic() - _SESSION_TTL
@@ -436,23 +534,7 @@ class DedupSidecar:
                 body = self._recv_exact(conn, h.pkg_len) if h.pkg_len else b""
                 if body is None:
                     return
-                self.stats["requests"] += 1
-                if h.cmd == StorageCmd.DEDUP_FINGERPRINT:
-                    status, resp = self._fingerprint(body)
-                elif h.cmd == StorageCmd.DEDUP_FINGERPRINT_CUTS:
-                    status, resp = self._fingerprint(body, with_cuts=True)
-                elif h.cmd == StorageCmd.DEDUP_QUERY:
-                    status, resp = self._query(body)
-                elif h.cmd == StorageCmd.DEDUP_COMMIT:
-                    status, resp = self._commit(body)
-                elif h.cmd == StorageCmd.DEDUP_NEARDUPS:
-                    status, resp = self._neardups(body)
-                elif h.cmd == StorageCmd.DEDUP_VERIFY:
-                    status, resp = self._verify(body)
-                elif h.cmd == StorageCmd.ACTIVE_TEST:
-                    status, resp = 0, b""
-                else:
-                    status, resp = 22, b""
+                status, resp = self.handle(h.cmd, body)
                 conn.sendall(pack_header(len(resp),
                                           StorageCmd.RESP, status) + resp)
         except OSError:
